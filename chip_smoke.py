@@ -10,7 +10,8 @@ non-zero and prints no result):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      no CUDA device -> exit 1
   2. build the aec_package kernel (nvcc, sm_90a), with ptxas's report
-  3. main path: RecordChain(4096, 16000, device="cuda") in its defaults
+  3. main path: RecordChain(4096, 16000) in its defaults, the card among
+     them
      (NS+AEC+AGC+VAD, AGC 5 dB), 4 chunks of K=25 packages of seeded
      audio; the kernel's launch count over the run must equal the steady
      packages (96); outputs int16, AEC output finite; steady chunk time
@@ -112,7 +113,7 @@ def main() -> int:
     mic, play = audio(K * CHUNKS, B_MAIN, seed=0)
     mic_d = torch.from_numpy(mic).to(dev)
     play_d = torch.from_numpy(play).to(dev)
-    chain = RecordChain(B_MAIN, 16000, device=dev)
+    chain = RecordChain(B_MAIN, 16000)     # the default device: the card
     torch.cuda.synchronize()
     aec_package.package_step.launches = 0
     chunk_ms = []
@@ -215,7 +216,7 @@ def main() -> int:
     farx = (rng.randn(P, B_MAIN, 320) * 4000).astype(np.float32)
     nearx = (np.roll(farx, 2, axis=0) * 0.3 +
              rng.randn(P, B_MAIN, 320) * 800).astype(np.float32)
-    eb = aec_package.AecBatchPackage(B_MAIN, 16000, device=dev)
+    eb = aec_package.AecBatchPackage(B_MAIN, 16000)
     for p in range(P):
         out = eb.step(torch.from_numpy(farx[p]).to(dev),
                       torch.from_numpy(nearx[p]).to(dev))

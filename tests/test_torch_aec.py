@@ -121,7 +121,7 @@ def test_planner_copy_equal():
 
 def test_exact_layout_matches(ref):
     from wmix_tpu_torch.engine.aec_step import AecBatch
-    a = AecBatch(B, 16000)
+    a = AecBatch(B, 16000, device="cpu")
     worst = 0.0
     for p in range(P):
         out = a.step(torch.from_numpy(ref["far"][p]),
@@ -173,7 +173,7 @@ def test_package_path_matches_and_cancels_echo(ref):
     within rel 1e-4 of the reference's AecBatchPallas per package, and
     the echo guard of test_aec_pallas.py:57-59."""
     from wmix_tpu_torch.engine.aec_package import AecBatchPackage
-    b = AecBatchPackage(B, 16000)
+    b = AecBatchPackage(B, 16000, device="cpu")
     worst = 0.0
     for p in range(P):
         out = b.step(torch.from_numpy(ref["far"][p]),
@@ -183,3 +183,73 @@ def test_package_path_matches_and_cancels_echo(ref):
     near_e = float((ref["near"][P - 1] ** 2).mean())
     out_e = float((out ** 2).mean())
     assert out_e < near_e
+
+
+# The kernel's FFT form (warp-level 64-point complex FFT plus split/merge,
+# `kernel_rfft_ref` / `kernel_irfft_ref`) against the `_dft_mats` products
+# of `package_body`, one case per transform the kernel runs.  Seeded numpy
+# input; rel <= 1e-5 of the largest value (float32, two summation orders).
+FFT_REL = 1e-5
+
+
+def _fft_case(kind):
+    from wmix_tpu_torch.engine import aec_package as ap
+    c = ap._mats_on("cpu")
+    rng = np.random.RandomState(5)
+    n = 7
+
+    def t(*shape, scale=3000.0):
+        return torch.from_numpy((rng.randn(n, *shape) * scale).astype(
+            np.float32))
+    zeros = torch.zeros(n, 64)
+    P1 = 65
+    if kind in ("forward_full", "forward_windowed"):
+        x = t(128)
+        col = 0 if kind == "forward_full" else 2 * P1
+        if kind == "forward_windowed":
+            win = torch.cat([c["win_a"], c["win_b"]], dim=1)
+            got = ap.kernel_rfft_ref(x * win)
+        else:
+            got = ap.kernel_rfft_ref(x)
+        want = x @ c["m128"][:, col:col + 2 * P1]
+        return torch.cat(got, dim=1), want
+    if kind == "forward_zero_e":
+        e = t(64)
+        return (torch.cat(ap.kernel_rfft_ref(torch.cat([zeros, e], 1)), 1),
+                e @ c["m64"])
+    if kind == "forward_h_zero":
+        h = t(64, scale=1e-3)
+        want = h @ c["mf64"]
+        want[:, P1:] *= c["imask"]
+        return (torch.cat(ap.kernel_rfft_ref(torch.cat([h, zeros], 1)), 1),
+                want)
+    re, im = t(P1), t(P1)
+    if kind == "inverse_lower_half":
+        want = re @ c["mab"][:, :64] + im @ c["mab"][:, 64:]
+        return ap.kernel_irfft_ref(re, im)[:, :64], want
+    if kind == "inverse_upper_half":
+        return (ap.kernel_irfft_ref(re, im)[:, 64:],
+                torch.cat([re, im], 1) @ c["mgy"])
+    assert kind == "output_inverse_neg_im"
+    want = re @ c["mgo"][:, :128] - im @ c["mgo"][:, 128:]
+    return ap.kernel_irfft_ref(re, im, negate_im=True), want
+
+
+@pytest.mark.parametrize("kind", [
+    "forward_full", "forward_windowed", "forward_zero_e", "forward_h_zero",
+    "inverse_lower_half", "inverse_upper_half", "output_inverse_neg_im"])
+def test_kernel_fft_form_matches_dft_mats(kind):
+    got, want = _fft_case(kind)
+    assert got.shape == want.shape
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= FFT_REL * scale, kind
+
+
+def test_kernel_fft_round_trip_is_identity():
+    """inverse(forward(x)) returns x: the 2/128 scale and the packing of
+    the two directions agree."""
+    from wmix_tpu_torch.engine import aec_package as ap
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy((rng.randn(5, 128) * 1000).astype(np.float32))
+    back = ap.kernel_irfft_ref(*ap.kernel_rfft_ref(x))
+    assert float((back - x).abs().max()) <= FFT_REL * float(x.abs().max())

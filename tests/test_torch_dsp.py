@@ -65,7 +65,7 @@ def test_agc_bit_equal():
     jst, jout = _run_jax(
         lambda s, x: J.process_pkg(s, x, 1, FREQ, 5), _batched(J.init_state()))
     tst, tout = _run_port(
-        lambda s, x: T.process_pkg(s, x, 1, FREQ, 5), T.init_state(B))
+        lambda s, x: T.process_pkg(s, x, 1, FREQ, 5), T.init_state(B, device="cpu"))
     np.testing.assert_array_equal(tout, jout)
     _assert_state_equal(tst, jst)
     assert np.abs(tout).max() > 20000     # the loud packages reached AGC
@@ -77,7 +77,7 @@ def test_vad_bit_equal():
     jst, jout = _run_jax(lambda s, x: J.process(s, x, 1, FREQ),
                          _batched(J.init_state()))
     tst, tout = _run_port(lambda s, x: T.process(s, x, 1, FREQ),
-                          T.init_state(B))
+                          T.init_state(B, device="cpu"))
     np.testing.assert_array_equal(tout, jout)
     _assert_state_equal(tst, jst)
 
@@ -89,7 +89,7 @@ def test_ns_fast_within_4_lsb(monkeypatch):
     _jst, jout = _run_jax(lambda s, x: J.process_pkg(s, x, 1, FREQ),
                           _batched(J.init_state(FREQ)))
     _tst, tout = _run_port(lambda s, x: T.process_pkg(s, x, 1, FREQ),
-                           T.init_state(B, FREQ))
+                           T.init_state(B, FREQ, device="cpu"))
     d = np.abs(tout.astype(np.int64) - jout.astype(np.int64))
     print(f"NS port vs wmix_tpu (fast): max {d.max()} LSB, bit-equal "
           f"{(d == 0).mean():.4%} of {d.size} samples")

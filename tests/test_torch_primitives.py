@@ -193,3 +193,56 @@ def test_import_is_jax_free():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# ------------------------------------------------------- default device
+
+DEVICE_ENTRY_POINTS = [
+    ("engine.chain", "RecordChain"),
+    ("engine.chain", "state_from_numpy"),
+    ("engine.aec_package", "init_package_state"),
+    ("engine.aec_package", "init_chain_aec"),
+    ("engine.aec_package", "AecBatchPackage"),
+    ("engine.aec_step", "init_eng_state"),
+    ("engine.aec_step", "AecBatch"),
+    ("dsp.ns", "init_state"),
+    ("dsp.agc", "init_state"),
+    ("dsp.vad", "init_state"),
+    ("dsp.aec", "init_dev"),
+]
+
+
+@pytest.mark.parametrize("module,name", DEVICE_ENTRY_POINTS,
+                         ids=[f"{m}.{n}" for m, n in DEVICE_ENTRY_POINTS])
+def test_device_defaults_to_the_card(module, name):
+    """Every entry point that takes `device` defaults to None, which means
+    the card: the CPU is used only when the caller asks for it."""
+    import importlib
+    import inspect
+    fn = getattr(importlib.import_module(f"wmix_tpu_torch.{module}"), name)
+    assert inspect.signature(fn).parameters["device"].default is None
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    from wmix_tpu_torch.device import resolve_device
+    from wmix_tpu_torch.dsp import agc, vad
+    from wmix_tpu_torch.engine.aec_package import AecBatchPackage
+    from wmix_tpu_torch.engine.chain import RecordChain
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: RecordChain(2, 16000),
+                  lambda: RecordChain(2, 16000, device="cuda"),
+                  lambda: AecBatchPackage(2, 16000),
+                  lambda: agc.init_state(2), lambda: vad.init_state(2),
+                  resolve_device):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+
+
+def test_cpu_when_asked_for():
+    from wmix_tpu_torch.device import resolve_device
+    from wmix_tpu_torch.engine.chain import RecordChain
+    ch = RecordChain(2, 16000, device="cpu")
+    assert ch.device == torch.device("cpu")
+    assert ch.state.play_fifo.device.type == "cpu"
+    assert ch.state.aec.dev.d_buf.device.type == "cpu"
+    assert resolve_device("cpu") == torch.device("cpu")

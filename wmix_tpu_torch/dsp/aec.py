@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.floatops import fcosf, flog, fpowf, fsinf, fsqrtf
 from wmix_tpu_torch.ops.rdft import aec_rdft_traced
 
@@ -137,8 +138,9 @@ class AecDev(NamedTuple):
     diverge_state: torch.Tensor  # [B] i32
 
 
-def init_dev(batch: int, device="cpu") -> AecDev:
+def init_dev(batch: int, device=None) -> AecDev:
     """WebRtcAec_InitAec's device-visible parts (aec_core.c:1527-1688)."""
+    device = resolve_device(device)
     def f(shape, v=0.0, dt=F32):
         return torch.full((batch,) + tuple(shape), v, dtype=dt,
                           device=device)

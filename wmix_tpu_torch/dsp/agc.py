@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.intops import (I32, I64, add_sat_w16, div_trunc,
                                        norm_u32, norm_w32, sat_w16, wrap16)
 
@@ -245,9 +246,10 @@ class AgcState(NamedTuple):
     down_state: torch.Tensor   # [B, 8]
 
 
-def init_state(batch: int, device="cpu") -> AgcState:
+def init_state(batch: int, device=None) -> AgcState:
     """WebRtcAgc_InitDigital + InitVad (digital_agc.c:259-282, 606-631),
     adaptive-digital mode, for B streams."""
+    device = resolve_device(device)
     def s(v):
         return torch.full((batch,), v, dtype=I32, device=device)
     return AgcState(

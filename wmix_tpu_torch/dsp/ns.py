@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.floatops import fexp, flog, fpow_div, fsqrt_d, ftanh
 from wmix_tpu_torch.ops.rdft import rdft_traced
 
@@ -161,8 +162,9 @@ class NsState(NamedTuple):
     sum_magn: torch.Tensor
 
 
-def init_state(batch: int, fs: int, device="cpu") -> NsState:
+def init_state(batch: int, fs: int, device=None) -> NsState:
     """WebRtcNs_InitCore (ns_core.c:74-214), policy 2, for B streams."""
+    device = resolve_device(device)
     A, M = ana_len(fs), magn_len(fs)
 
     def full(shape, v, dt=F32):

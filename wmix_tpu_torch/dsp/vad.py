@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.intops import (I32, div_w32_w16, norm_u32, norm_w32,
                                        u32, wrap16)
 
@@ -90,8 +91,9 @@ def _t(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
 
-def init_state(batch: int, device="cpu") -> VadState:
+def init_state(batch: int, device=None) -> VadState:
     """WebRtcVad_InitCore (vad_core.c:482-536) + wrapper reduce=4."""
+    device = resolve_device(device)
     def rows(a):
         return _t(a, device).expand(batch, -1).clone()
 

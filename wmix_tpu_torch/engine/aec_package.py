@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.aec import (
     MIN_FAREND_PSD,
     MIN_OVERDRIVE,
@@ -140,6 +141,92 @@ def _dft_mats():
 def _mats_on(device: str):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in _dft_mats().items()}
+
+
+# The kernel's transforms, spelled out in plain torch for the CPU tests
+# (nothing on the main path calls these).  A real 128-point transform is
+# a complex 64-point FFT of the even/odd packing z[n] = x[2n] + i x[2n+1]
+# plus a split (forward) or merge (inverse) step.  The FFT runs in one
+# warp: lane l holds points l and l + 32, one radix-2 stage works inside
+# the lane and five across lanes by `shfl_xor`, emulated here by indexing
+# with `lane ^ h`.  The forward is decimation in frequency (natural order
+# in, bit-reversed out), the inverse decimation in time (bit-reversed in,
+# natural out), so neither reorders: lane l's two values of a spectrum are
+# the bins 2 brev5(l) and 2 brev5(l) + 1.
+
+_LANE = torch.arange(32)
+_BREV5 = torch.tensor([int(f"{i:05b}"[::-1], 2) for i in range(32)])
+
+
+def _kernel_twiddle(m, inverse: bool = False):
+    """e^{+-2 pi i m / 128} from the kernel's cos/sin table."""
+    tab = _kernel_consts("cpu")
+    sn = tab[PART_LEN2:2 * PART_LEN2][m]
+    return torch.complex(tab[:PART_LEN2][m], -sn if inverse else sn)
+
+
+def _warp_fft64(a0, a1, inverse: bool):
+    """The 64-point complex FFT as the kernel's warp runs it: a0, a1
+    [..., 32] complex are every lane's two registers.  Forward: sum of
+    z[n] e^{+2 pi i n k / 64}; inverse: the conjugate kernel, unscaled."""
+    spans = (16, 8, 4, 2, 1)
+    if not inverse:
+        a0, a1 = a0 + a1, (a0 - a1) * _kernel_twiddle(2 * _LANE)
+    for h in (reversed(spans) if inverse else spans):
+        upper = (_LANE & h) != 0
+        tw = _kernel_twiddle((_LANE & (h - 1)) * (64 // h), inverse)
+        regs = []
+        for a in (a0, a1):
+            if inverse:
+                a = torch.where(upper, a * tw, a)
+                p = a[..., _LANE ^ h]
+                regs.append(torch.where(upper, p - a, a + p))
+            else:
+                p = a[..., _LANE ^ h]
+                regs.append(torch.where(upper, (p - a) * tw, a + p))
+        a0, a1 = regs
+    if inverse:
+        a1 = a1 * _kernel_twiddle(2 * _LANE, inverse=True)
+        a0, a1 = a0 + a1, a0 - a1
+    return a0, a1
+
+
+def kernel_rfft_ref(x128):
+    """The kernel's forward transform of [..., 128] real samples: (re, im)
+    [..., 65] in the Ooura convention of `_dft_mats` (im = +sum x sin,
+    im[0] = im[64] = 0)."""
+    z = torch.complex(x128[..., 0::2], x128[..., 1::2])
+    a0, a1 = _warp_fft64(z[..., :32], z[..., 32:], inverse=False)
+    zs = torch.empty_like(z)                # the warp's scratch row
+    zs[..., 2 * _BREV5] = a0
+    zs[..., 2 * _BREV5 + 1] = a1
+    k = torch.arange(PART_LEN1)
+    zk, zm = zs[..., k & 63], zs[..., (64 - k) & 63].conj()
+    even = (zk + zm) * 0.5
+    odd = (zk - zm) * torch.complex(torch.tensor(0.0), torch.tensor(-0.5))
+    spec = even + _kernel_twiddle(k % PART_LEN2) * odd
+    im = spec.imag.clone()
+    im[..., 0] = 0.0
+    im[..., PART_LEN] = 0.0
+    return spec.real, im
+
+
+def kernel_irfft_ref(re, im, negate_im: bool = False):
+    """The kernel's inverse of a packed (re, im) [..., 65] spectrum:
+    [..., 128] samples, scaled by 2/128 as `_dft_mats` scales; im[0] and
+    im[64] are ignored; `negate_im` is the output inverse's -im."""
+    im = im.clone()
+    im[..., 0] = 0.0
+    im[..., PART_LEN] = 0.0
+    spec = torch.complex(re, -im if negate_im else im)
+
+    def merged(k):
+        xk, xm = spec[..., k], spec[..., 64 - k].conj()
+        return (xk + xm) + 1j * ((xk - xm) * _kernel_twiddle(k, True))
+    a0, a1 = _warp_fft64(merged(2 * _BREV5), merged(2 * _BREV5 + 1),
+                         inverse=True)
+    z = torch.cat([a0, a1], dim=-1) * (1.0 / PART_LEN2)
+    return torch.stack([z.real, z.imag], dim=-1).flatten(-2)
 
 
 def _mm(x, m):
@@ -378,9 +465,10 @@ def _block_math(c, st, near64, xf_re_new, xf_im_new, xfw_re_new,
     return st, output
 
 
-def init_package_state(batch: int, device="cpu"):
+def init_package_state(batch: int, device=None):
     """Fresh kernel-layout state matching WebRtcAec_InitAec
     (aec_core.c:1527-1688); the reference's `init_pallas_state`."""
+    device = resolve_device(device)
     st = {k: torch.zeros((batch,) + STATE_SHAPES[k],
                          dtype=I32 if k in SCALAR_I else F32,
                          device=device) for k in STATE_FIELDS}
@@ -635,7 +723,9 @@ def convert_chain_aec(eng: aec_step.AecEngState, dyn) -> PackageAecState:
                            convert_eng_state(eng, dyn))
 
 
-def init_chain_aec(batch: int, part_cap: int, device="cpu"):
+def init_chain_aec(batch: int, part_cap: int, device=None):
+    device = resolve_device(device)
+
     def z(*sh):
         return torch.zeros(sh, dtype=F32, device=device)
     return PackageAecState(z(batch, FAR_PRE_BUF_SIZE),
@@ -667,7 +757,7 @@ class AecBatchPackage:
     the state converts at the first steady package.  16 kHz only."""
 
     def __init__(self, batch: int, freq: int = 16000, part_cap: int = None,
-                 device="cpu"):
+                 device=None):
         if freq != 16000:
             raise NotImplementedError("the AEC package path is 16 kHz only")
         self.batch = batch

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.aec import (
     AecDev,
     FRAME_LEN,
@@ -51,7 +52,8 @@ class AecEngState(NamedTuple):
 
 
 def init_eng_state(batch: int, part_cap: int = DEFAULT_PART_CAP,
-                   device="cpu") -> AecEngState:
+                   device=None) -> AecEngState:
+    device = resolve_device(device)
     def z(*shape):
         return torch.zeros(shape, dtype=F32, device=device)
     return AecEngState(
@@ -179,7 +181,7 @@ class AecBatch:
     """Batched AEC over B stream slots: planner + device state (mono)."""
 
     def __init__(self, batch: int, freq: int,
-                 part_cap: int = DEFAULT_PART_CAP, device="cpu"):
+                 part_cap: int = DEFAULT_PART_CAP, device=None):
         if freq != 16000:
             raise NotImplementedError("wmix_tpu_torch AEC: 16 kHz only")
         self.batch = batch

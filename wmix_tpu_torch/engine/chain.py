@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp import agc as agc_mod
 from wmix_tpu_torch.dsp import ns as ns_mod
 from wmix_tpu_torch.dsp import vad as vad_mod
@@ -55,30 +56,23 @@ class ChainState(NamedTuple):
     play_fifo: torch.Tensor   # [B, 22, pkg_len] f32 (int16-valued)
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("RecordChain: device 'cuda' asked for, but no "
-                           "CUDA device is present")
-    return device
-
-
 class RecordChain:
     """B concurrent streams of the daemon record chain (16 kHz mono).
 
     Enable flags mirror wmix->webrtcEnable[]; the AGC gain mirrors
-    wmix->volumeAgc (default 5, src/wmix.c:1596).  `device` is used as
-    given: asking for 'cuda' without a GPU raises."""
+    wmix->volumeAgc (default 5, src/wmix.c:1596).  `device` defaults to
+    the card (None means "cuda"); without a CUDA device that raises, and
+    the CPU is used only when asked for."""
 
     def __init__(self, batch: int, freq: int, ns_enable: bool = True,
                  aec_enable: bool = True, agc_enable: bool = True,
                  vad_enable: bool = True, agc_gain_db: int = 5, chn: int = 1,
-                 device="cpu"):
+                 device=None):
         check_fast_mode()
         if freq != 16000 or chn != 1:
             raise NotImplementedError(
                 "wmix_tpu_torch RecordChain: 16 kHz mono only")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.batch = batch
         self.freq = freq
         self.chn = chn
@@ -253,12 +247,12 @@ def _tuple_from(cls, tree, device):
     return cls(**{f: _leaf(getattr(tree, f), device) for f in cls._fields})
 
 
-def state_from_numpy(tree, device="cpu") -> ChainState:
+def state_from_numpy(tree, device=None) -> ChainState:
     """A `wmix_tpu` ChainState, given as a tree of numpy arrays (its
     NamedTuples with numpy leaves), as the port's state on `device`.
     Fields match by name; both AEC layouts (the exact-layout AecEngState
     and the kernel layout with its state dict) are taken."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     aec = tree.aec
     if hasattr(aec, "dev"):
         port_aec = aec_step.AecEngState(

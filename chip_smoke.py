@@ -17,7 +17,9 @@ non-zero and prints no result):
      packages (96); outputs int16, AEC output finite; steady chunk time
      and streams = B * audio_s / wall
   4. kernel vs package_body at B=4096 from the adapted state: rel <= 1e-4
-     on the output and every state field; CUDA-event times, median of 20
+     on the output and every float state field, equality on every integer
+     state field; CUDA-event times, median of 20, beside the least time
+     the card could take for the same bytes and operations
   5. the chain at B=4 on cuda (kernel) and on cpu (plain version), same
      input, 2 chunks x K=25: origin and 8 kHz package within 4 LSB
   6. echo check: AecBatchPackage at B=4096 on a delayed-echo scene,
@@ -64,6 +66,31 @@ def audio(k, b, seed):
 def rel(x, y) -> float:
     x, y = x.double(), y.double()
     return float((x - y).abs().max() / y.abs().max().clamp_min(1.0))
+
+
+# Published peaks of the H100 SXM (NVIDIA's data sheet, 700 W): device
+# memory and float32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+
+def package_bound(tensors_in, tensors_inout, tensors_out, batch):
+    """(bound_ms, bound_by, bytes, flop) of one AEC package launch: every
+    input read once, the state read and written once, the output written
+    once, against the operations of the FFT form: per block 30 real
+    128-point transforms (a 64-point complex FFT, 6 stages x 32
+    butterflies x 10, plus 65 split or merge bins x 14) and about 25 k of
+    per-bin work (FilterFar, gradient, energies, smoothing, suppression),
+    5 blocks per stream."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    moved = nbytes(tensors_in) + 2 * nbytes(tensors_inout) + \
+        nbytes(tensors_out)
+    flop = batch * 5 * (30 * (6 * 32 * 10 + 65 * 14) + 25_000)
+    by_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = flop / PEAK_F32_FLOP_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", moved, flop)
 
 
 def cuda_median_ms(fn, n=20, warm=3) -> float:
@@ -175,20 +202,33 @@ def main() -> int:
         raise AssertionError("kernel output not finite")
     worst = {"out": rel(out_k, out_p)}
     worst.update({k: rel(st_k[k], st_p[k])
-                  for k in aec_package.STATE_FIELDS})
+                  for k in aec_package.STATE_FIELDS
+                  if k not in aec_package.SCALAR_I})
     bad = {k: v for k, v in worst.items() if not v <= REL}
     if bad:
         raise AssertionError(f"kernel vs package_body beyond rel {REL}: "
                              f"{bad}")
+    unequal = {k: int((st_k[k] != st_p[k]).sum())
+               for k in aec_package.SCALAR_I}
+    if any(unequal.values()):
+        raise AssertionError("kernel vs package_body: integer state fields "
+                             f"differ on this many streams: {unequal}")
     max_abs = float((out_k - out_p).abs().max())
     scratch = {k: v.clone() for k, v in ast.p.items()}
     kernel_ms = cuda_median_ms(
         lambda: aec_package.package_step(scratch, *ins))
     plain_ms = cuda_median_ms(
         lambda: aec_package.package_body(scratch, *ins))
+    bound_ms, bound_by, moved, flop = package_bound(
+        ins + (aec_package._kernel_consts(str(near.device)),),
+        tuple(st_k[k] for k in aec_package.STATE_FIELDS), (out_k,), B_MAIN)
     phase("kernel_vs_plain", batch=B_MAIN, max_rel=max(worst.values()),
+          max_rel_at=max(worst, key=worst.get),
+          int_fields_equal=sorted(unequal),
           max_abs_err_out=max_abs, kernel_ms=round(kernel_ms, 4),
-          plain_ms=round(plain_ms, 4))
+          plain_ms=round(plain_ms, 4), bound_ms=round(bound_ms, 4),
+          bound_by=bound_by, bound_share=round(bound_ms / kernel_ms, 4),
+          bytes_moved=moved, flop=flop)
 
     # 5. the chain on cuda (kernel) against the chain on cpu (plain)
     mic4, play4 = audio(2 * K, 4, seed=3)
@@ -236,7 +276,11 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_abs,
         "ms": kernel_ms,
-        "plain_ms": plain_ms}]}))
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        # no single PyTorch call computes an AEC package
+        "library_ms": None}]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

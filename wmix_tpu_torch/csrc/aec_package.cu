@@ -13,28 +13,52 @@
 // carry.  The plain PyTorch version is engine/aec_package.py
 // `package_body`.
 //
-// Design.  One CTA of 128 threads per stream.  The stream's state (about
-// 23 KB: 11x65 smoothed spectra, six 12x65 partition arrays, the time
-// buffers and 11 scalars) is read from device memory once, the five
-// blocks run in a loop inside the CTA out of shared memory, and the state
-// is written back once, in place.  The partition histories are rings with
-// a moving head inside the kernel and are stored newest first again on the
-// way out, so no block shifts 12x65 arrays.  The DFTs are direct sums over
-// a 128-entry cos/sin table in shared memory in place of the reference's
-// 13 DFT matrices (about 330 KB, which do not fit); every entry of those
-// matrices is +-cos or sin of 2 pi j k / 128, a window value or the 2/128
-// scale, which is a power of two and applied exactly after the sum.
+// What bounds it.  A launch must move about 54 KB per stream (the 23 KB
+// state in and out, the near package, four [5,65] far spectra, the
+// output): 221 MB at 4096 streams, 0.066 ms at the H100's 3.35 TB/s.  In
+// the FFT form below the arithmetic is about 0.5 MFLOP per stream, 0.03 ms
+// at the 67 TFLOP/s float32 peak.  So device-memory bytes bound it, and
+// everything between the one read and the one write of the state has to
+// stay out of device memory and cheap.
 //
-// What bounds it.  The direct-DFT form costs about 3 MFLOP per stream per
-// package (most of it the adaptation round trip: 12 partitions x (65x64 +
-// 64x65) complex-by-real multiply-adds per block) against about 52 KB of
-// state and inputs moved: some 60 FLOP/byte, above the H100's f32
-// CUDA-core ridge of about 20, so arithmetic (and the shared-memory
-// operand traffic behind each FMA), not device-memory bandwidth, bounds
-// it.  Everything is float32 on the CUDA cores: no tensor cores, no TF32
-// (bf16 DFT passes drifted to 822 LSB over 10 s on the reference side).
-// The transcendentals use the accurate logf/expf/sinf/cosf (no fast math).
-// Speeding it up (an FFT form, several streams per CTA) is later work.
+// Design.  One CTA of 128 threads (four warps) per stream.  The stream's
+// state is read from device memory once, the five blocks run in a loop
+// inside the CTA out of shared memory, and the state is written back
+// once, in place.  The partition histories are rings with a moving head
+// inside the kernel and are stored newest first again on the way out, so
+// no block shifts 12x65 arrays.
+//
+// Every transform is a real 128-point FFT in Ooura's rdft convention
+// (re = sum x cos, im = +sum x sin, im[0] = im[64] = 0; the inverse scaled
+// by 2/128), computed by ONE WARP as a 64-point complex FFT of the
+// even/odd packing z[n] = x[2n] + i x[2n+1] plus a split (forward) or
+// merge (inverse) step.  Lane l holds points l and l + 32: one radix-2
+// stage works in registers and five through __shfl_xor_sync, with no
+// shared memory and no barrier inside a transform.  The forward is
+// decimation in frequency (natural order in, bit-reversed out), the
+// inverse decimation in time (bit-reversed in, natural out), so neither
+// reorders data: a lane's two spectrum values are the bins 2 brev5(l) and
+// 2 brev5(l) + 1.  A forward leaves its 64 complex values in a 512-byte
+// scratch row of its warp, from which the split step reads bins k and
+// 64 - k; an inverse forms its merged input straight from the spectrum
+// in shared memory.  All twiddles come from the cos/sin table of
+// 2 pi m / 128 in `consts` (the six a lane needs sit in registers).
+//
+// The 30 transforms of a block: the near spectrum on one warp while the
+// others run FilterFar; the echo-estimate inverse on one warp while the
+// others smooth the powers; the error spectrum and the two windowed
+// spectra side by side on three warps; the adaptation round trip with warp w owning partitions w, w + 4,
+// w + 8 (gradient spectrum formed in registers, inverse, upper half
+// zeroed in registers, forward, added into the filter) without a
+// block-wide barrier; the output inverse with its overlap-add inside the
+// lanes.  engine/aec_package.py `kernel_rfft_ref` / `kernel_irfft_ref`
+// spell the same index arithmetic out in plain torch for the CPU tests.
+//
+// Everything is float32 on the CUDA cores: no tensor cores, no TF32
+// (reduced-precision DFT passes drift through the adaptation loop).  The
+// transcendentals use the accurate logf/expf/sinf/cosf (no fast math).
+// The per-stream decision logic still runs on one thread and the state
+// still moves as 4-byte accesses; both are later work.
 
 #include <cuda_runtime.h>
 
@@ -49,6 +73,8 @@ constexpr int NB = 5;             // blocks per package
 constexpr int PKG = NB * PL;      // 320
 constexpr int OUT_DELAY = 48;
 constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 enum { V_XPOW, V_DPOW, V_DMIN, V_DINITMIN, V_SD, V_SE, V_SX,
        V_SDE0, V_SDE1, V_SXD0, V_SXD1 };
@@ -102,12 +128,10 @@ struct Smem {
   float xf[2][NP][P1];    // ring, logical i at (head + i) % 12
   float xfw[2][NP][P1];   // ring, same head
   float wf[2][NP][P1];
-  float dbuf[P2], ebuf[P2], dw[P2], ew[P2], obuf[PL], carry[OUT_DELAY];
+  float dbuf[P2], ebuf[P2], obuf[PL], carry[OUT_DELAY];
   float near[PKG], stream[PKG];
   float df[2][P1], dfw[2][P1], efw[2][P1], ef[2][P1], yf[2][P1];
-  float e64[PL], t128[P2];
-  float grad[2][NP][P1];
-  float h64[NP][PL];
+  float zr[WARPS][PL], zi[WARPS][PL];   // each warp's FFT scratch row
   float noise_pow[P1], coh_de[P1], coh_xd[P1], en[NP];
   Scalars sc;
 };
@@ -125,6 +149,153 @@ constexpr int kQ50 = 5;           // floor(0.5 * 11)
 
 __device__ __forceinline__ float win128(const Smem& s, int j) {
   return j < PL ? s.win[j] : s.win[P2 - j];
+}
+
+// ---- the warp-level FFT ----
+
+// A lane's twiddles: index 0 for the in-register stage (span 32), 1..4 for
+// the shuffle stages of span 16, 8, 4, 2; span 1 multiplies by one.
+struct Tw {
+  float c[5], s[5];
+};
+
+__device__ __forceinline__ Tw load_twiddles(const float* consts, int lane) {
+  Tw w;
+  w.c[0] = consts[2 * lane];
+  w.s[0] = consts[P2 + 2 * lane];
+#pragma unroll
+  for (int i = 1; i < 5; ++i) {
+    const int h = 32 >> i;
+    const int m = (lane & (h - 1)) * (PL / h);
+    w.c[i] = consts[m];
+    w.s[i] = consts[P2 + m];
+  }
+  return w;
+}
+
+// a * (c + i s)
+__device__ __forceinline__ float2 cmul(float2 a, float c, float s) {
+  return make_float2(a.x * c - a.y * s, a.x * s + a.y * c);
+}
+
+// One radix-2 stage across lanes l and l ^ h.  Decimation in frequency
+// (forward): lower = a + b, upper = (a - b) tw.  Decimation in time
+// (inverse, conjugate twiddle): lower = a + tw b, upper = a - tw b.
+template <bool kInverse>
+__device__ __forceinline__ void butterfly(float2& a, int h, bool upper,
+                                          float c, float s) {
+  if (kInverse) {
+    const float2 m = cmul(a, c, -s);
+    if (upper) a = m;
+  }
+  const float2 p = make_float2(__shfl_xor_sync(FULL, a.x, h),
+                               __shfl_xor_sync(FULL, a.y, h));
+  const float2 r = upper ? make_float2(p.x - a.x, p.y - a.y)
+                         : make_float2(a.x + p.x, a.y + p.y);
+  if (kInverse) {
+    a = r;
+  } else {
+    const float2 m = cmul(r, c, s);
+    a = upper ? m : r;
+  }
+}
+
+// Forward 64-point complex FFT, sum z[n] e^{+2 pi i n k / 64}: a0, a1 are
+// points lane and lane + 32 on entry, bins 2 brev5(lane) and
+// 2 brev5(lane) + 1 on return.
+__device__ __forceinline__ void fft64_forward(float2& a0, float2& a1,
+                                              const Tw& w, int lane) {
+  const float2 d = make_float2(a0.x - a1.x, a0.y - a1.y);
+  a0 = make_float2(a0.x + a1.x, a0.y + a1.y);
+  a1 = cmul(d, w.c[0], w.s[0]);
+#pragma unroll
+  for (int i = 1; i <= 5; ++i) {
+    const int h = 32 >> i;
+    const bool upper = (lane & h) != 0;
+    const float c = i < 5 ? w.c[i < 5 ? i : 0] : 1.f;
+    const float s = i < 5 ? w.s[i < 5 ? i : 0] : 0.f;
+    butterfly<false>(a0, h, upper, c, s);
+    butterfly<false>(a1, h, upper, c, s);
+  }
+}
+
+// Inverse (conjugate kernel, unscaled): bins 2 brev5(lane) and
+// 2 brev5(lane) + 1 on entry, points lane and lane + 32 on return.
+__device__ __forceinline__ void fft64_inverse(float2& a0, float2& a1,
+                                              const Tw& w, int lane) {
+#pragma unroll
+  for (int i = 5; i >= 1; --i) {
+    const int h = 32 >> i;
+    const bool upper = (lane & h) != 0;
+    const float c = i < 5 ? w.c[i < 5 ? i : 0] : 1.f;
+    const float s = i < 5 ? w.s[i < 5 ? i : 0] : 0.f;
+    butterfly<true>(a0, h, upper, c, s);
+    butterfly<true>(a1, h, upper, c, s);
+  }
+  const float2 m = cmul(a1, w.c[0], -w.s[0]);
+  a1 = make_float2(a0.x - m.x, a0.y - m.y);
+  a0 = make_float2(a0.x + m.x, a0.y + m.y);
+}
+
+// Forward real transform, first half: the lane's samples x[2l], x[2l+1],
+// x[2l+64], x[2l+65] go through the complex FFT, and its 64 values land
+// in the warp's scratch row in natural order.
+__device__ __forceinline__ void rfft_to_scratch(float x0, float x1, float x64,
+                                                float x65, const Tw& w,
+                                                int lane, float* zr,
+                                                float* zi) {
+  float2 a0 = make_float2(x0, x1), a1 = make_float2(x64, x65);
+  fft64_forward(a0, a1, w, lane);
+  const int k = static_cast<int>(__brev(static_cast<unsigned>(lane)) >> 27) * 2;
+  zr[k] = a0.x;
+  zi[k] = a0.y;
+  zr[k + 1] = a1.x;
+  zi[k + 1] = a1.y;
+  __syncwarp();
+}
+
+// Forward real transform, second half: bin k (0..64) of the spectrum from
+// the scratch row, X[k] = E[k] + e^{2 pi i k / 128} O[k] with E, O the
+// transforms of the even and odd samples; im[0] = im[64] = 0.
+__device__ __forceinline__ void split_bin(const Smem& s, const float* zr,
+                                          const float* zi, int k, float& re,
+                                          float& im) {
+  const int k1 = k & (PL - 1), k2 = (PL - k) & (PL - 1);
+  const float ar = zr[k1], ai = zi[k1], br = zr[k2], bi = -zi[k2];
+  const float er = 0.5f * (ar + br), ei = 0.5f * (ai + bi);
+  const float orr = 0.5f * (ai - bi), oi = -0.5f * (ar - br);
+  const float c = s.cs[k], sn = s.sn[k];
+  re = er + (c * orr - sn * oi);
+  im = (k == 0 || k == PL) ? 0.f : ei + (c * oi + sn * orr);
+}
+
+// Inverse real transform: `spec(k, re, im)` gives bin k (0..64) of the
+// packed spectrum; im[0] and im[64] count as zero.  Returns the unscaled
+// samples t[2l], t[2l+1] in a0 and t[2l+64], t[2l+65] in a1, where
+// t[j] = sum over all 128 bins of the hermitian spectrum; the caller
+// scales by 1/128 (the reference's 2/128 on its half-weighted sum).
+template <class Spec>
+__device__ __forceinline__ void irfft(const Smem& s, Spec spec, const Tw& w,
+                                      int lane, float2& a0, float2& a1) {
+  const int kb = static_cast<int>(__brev(static_cast<unsigned>(lane)) >> 27) * 2;
+  float2 z[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int k = kb + r;
+    float xr, xi, mr, mi;
+    spec(k, xr, xi);
+    spec(PL - k, mr, mi);
+    if (k == 0) {
+      xi = 0.f;
+      mi = 0.f;
+    }
+    // A = X[k] + conj(X[64-k]); B = (X[k] - conj(X[64-k])) e^{-2 pi i k/128}
+    const float2 b = cmul(make_float2(xr - mr, xi + mi), s.cs[k], -s.sn[k]);
+    z[r] = make_float2((xr + mr) - b.y, (xi - mi) + b.x);
+  }
+  a0 = z[0];
+  a1 = z[1];
+  fft64_inverse(a0, a1, w, lane);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -183,6 +354,12 @@ aec_package_kernel(Args a) {
   }
   __syncthreads();
 
+  const int lane = t & 31, warp = t >> 5;
+  const Tw tw = load_twiddles(a.consts, lane);
+  float* const zr = s.zr[warp];
+  float* const zi = s.zi[warp];
+  const float kInvN = 1.0f / P2;
+
   int head = 0;
   for (int blk = 0; blk < NB; ++blk) {
     const bool f_sel = a.flags[blk * 3 + 0] != 0;
@@ -191,10 +368,8 @@ aec_package_kernel(Args a) {
     head = (head + NP - 1) % NP;   // the oldest slot takes the new partition
 
     // ---- 1. shift the near block into dBuf; insert the far partitions ----
-    const float dkeep = t < PL ? s.dbuf[PL + t] : 0.f;
-    __syncthreads();
-    if (t < PL) {
-      s.dbuf[t] = dkeep;
+    if (t < PL) {     // thread t alone touches dbuf[t] and dbuf[64 + t]
+      s.dbuf[t] = s.dbuf[PL + t];
       s.dbuf[PL + t] = s.near[blk * PL + t];
     }
     if (t < P1) {
@@ -205,91 +380,79 @@ aec_package_kernel(Args a) {
       s.xfw[1][head][t] = a.xfw5i[in_off];
     }
     __syncthreads();
-    s.dw[t] = s.dbuf[t] * win128(s, t);
-    __syncthreads();
 
-    // ---- 2. near spectra, plain and windowed ----
-    for (int o = t; o < 2 * P1; o += THREADS) {
-      const int k = o % P1;
-      const float* src = o < P1 ? s.dbuf : s.dw;
-      float re = 0.f, im = 0.f;
-      for (int j = 0; j < P2; ++j) {
-        const int m = (j * k) & (P2 - 1);
-        re = fmaf(src[j], s.cs[m], re);
-        im = fmaf(src[j], s.sn[m], im);
-      }
-      if (k == 0 || k == PL) im = 0.f;
-      float (*dst)[P1] = o < P1 ? s.df : s.dfw;
-      dst[0][k] = re;
-      dst[1][k] = im;
-    }
-    __syncthreads();
-
-    // ---- 3. power smoothing, noise floor, FilterFar (per bin) ----
-    if (t < P1) {
-      const float xr = s.xf[0][head][t], xi = s.xf[1][head][t];
-      const float x_pow = 0.9f * s.vecs[V_XPOW][t] + kG1x12 * (xr * xr + xi * xi);
-      const float dr = s.df[0][t], di = s.df[1][t];
-      const float d_pow = 0.9f * s.vecs[V_DPOW][t] + 0.1f * (dr * dr + di * di);
-      const float dmin_prev = s.vecs[V_DMIN][t];
-      const float lower = (d_pow + 0.1f * (dmin_prev - d_pow)) * 1.0002f;
-      const float dmin_upd = d_pow < dmin_prev ? lower : dmin_prev * 1.0002f;
-      const float d_min_pow = f_gate ? dmin_upd : dmin_prev;
-      const float dinit_prev = s.vecs[V_DINITMIN][t];
-      const float dinit_upd = d_min_pow > dinit_prev
-          ? 0.999f * dinit_prev + 0.001f * d_min_pow : d_min_pow;
-      const float d_init_min_pow = f_sel ? dinit_upd : dinit_prev;
-      s.noise_pow[t] = f_sel ? d_init_min_pow : d_min_pow;
-      s.vecs[V_XPOW][t] = x_pow;
-      s.vecs[V_DPOW][t] = d_pow;
-      s.vecs[V_DMIN][t] = d_min_pow;
-      s.vecs[V_DINITMIN][t] = d_init_min_pow;
-
+    // ---- 2. near spectrum (warp 0); far power and FilterFar per bin
+    //         (warps 1..3) ----
+    if (warp == 0) {
+      const int j = 2 * lane;
+      rfft_to_scratch(s.dbuf[j], s.dbuf[j + 1], s.dbuf[PL + j],
+                      s.dbuf[PL + j + 1], tw, lane, zr, zi);
+      for (int k = lane; k < P1; k += 32)
+        split_bin(s, zr, zi, k, s.df[0][k], s.df[1][k]);
+    } else if (t - 32 < P1) {
+      const int k = t - 32;
+      const float xr = s.xf[0][head][k], xi = s.xf[1][head][k];
+      s.vecs[V_XPOW][k] = 0.9f * s.vecs[V_XPOW][k] + kG1x12 * (xr * xr + xi * xi);
       float yr = 0.f, yi = 0.f;
       for (int i = 0; i < NP; ++i) {
         const int p = (head + i) % NP;
-        const float ar = s.xf[0][p][t], ai = s.xf[1][p][t];
-        const float wr = s.wf[0][i][t], wi = s.wf[1][i][t];
+        const float ar = s.xf[0][p][k], ai = s.xf[1][p][k];
+        const float wr = s.wf[0][i][k], wi = s.wf[1][i][k];
         yr += ar * wr - ai * wi;
         yi += ar * wi + ai * wr;
       }
-      s.yf[0][t] = yr;
-      s.yf[1][t] = yi;
+      s.yf[0][k] = yr;
+      s.yf[1][k] = yi;
     }
     __syncthreads();
 
-    // ---- 4. echo estimate y = second half of the inverse, error e ----
-    if (t < PL) {
-      const int j = PL + t;
-      float acc = 0.5f * s.yf[0][0] + 0.5f * ((j & 1) ? -s.yf[0][PL] : s.yf[0][PL]);
-      for (int k = 1; k < PL; ++k) {
-        const int m = (k * j) & (P2 - 1);
-        acc = fmaf(s.yf[0][k], s.cs[m], acc);
-        acc = fmaf(s.yf[1][k], s.sn[m], acc);
-      }
-      s.e64[t] = s.near[blk * PL + t] - acc * (2.0f / P2);
+    // ---- 3. echo estimate = second half of the inverse, error e into
+    //         eBuf (warp 0); near power and noise floor per bin (warps
+    //         1..3) ----
+    if (warp == 0) {
+      float2 a0, a1;
+      irfft(s, [&](int k, float& re, float& im) {
+        re = s.yf[0][k];
+        im = s.yf[1][k];
+      }, tw, lane, a0, a1);
+      const int j = 2 * lane;   // the lane alone touches ebuf[j], [64 + j] (+1)
+      s.ebuf[j] = s.ebuf[PL + j];
+      s.ebuf[j + 1] = s.ebuf[PL + j + 1];
+      s.ebuf[PL + j] = s.near[blk * PL + j] - a1.x * kInvN;
+      s.ebuf[PL + j + 1] = s.near[blk * PL + j + 1] - a1.y * kInvN;
+    } else if (t - 32 < P1) {
+      const int k = t - 32;
+      const float dr = s.df[0][k], di = s.df[1][k];
+      const float d_pow = 0.9f * s.vecs[V_DPOW][k] + 0.1f * (dr * dr + di * di);
+      const float dmin_prev = s.vecs[V_DMIN][k];
+      const float lower = (d_pow + 0.1f * (dmin_prev - d_pow)) * 1.0002f;
+      const float dmin_upd = d_pow < dmin_prev ? lower : dmin_prev * 1.0002f;
+      const float d_min_pow = f_gate ? dmin_upd : dmin_prev;
+      const float dinit_prev = s.vecs[V_DINITMIN][k];
+      const float dinit_upd = d_min_pow > dinit_prev
+          ? 0.999f * dinit_prev + 0.001f * d_min_pow : d_min_pow;
+      const float d_init_min_pow = f_sel ? dinit_upd : dinit_prev;
+      s.noise_pow[k] = f_sel ? d_init_min_pow : d_min_pow;
+      s.vecs[V_DPOW][k] = d_pow;
+      s.vecs[V_DMIN][k] = d_min_pow;
+      s.vecs[V_DINITMIN][k] = d_init_min_pow;
     }
-    const float ekeep = t < PL ? s.ebuf[PL + t] : 0.f;
-    __syncthreads();
-    if (t < PL) {
-      s.ebuf[t] = ekeep;
-      s.ebuf[PL + t] = s.e64[t];
-    }
-    __syncthreads();
-    s.ew[t] = s.ebuf[t] * win128(s, t);
     __syncthreads();
 
-    // ---- 5. error spectrum + ScaleErrorSignal; windowed error spectrum ----
-    for (int o = t; o < 2 * P1; o += THREADS) {
-      const int k = o % P1;
-      float re = 0.f, im = 0.f;
-      if (o < P1) {     // fft of [zeros(64), e]
-        for (int j = 0; j < PL; ++j) {
-          const int m = ((j + PL) * k) & (P2 - 1);
-          re = fmaf(s.e64[j], s.cs[m], re);
-          im = fmaf(s.e64[j], s.sn[m], im);
-        }
-        if (k == 0 || k == PL) im = 0.f;
+    // ---- 4. error spectrum of [zeros(64), e] + ScaleErrorSignal (warp
+    //         0); windowed error and near spectra (warps 1, 2).  The two
+    //         windowed transforms are ONE instruction stream run by two
+    //         warps: while the filter is empty e equals d exactly, and the
+    //         divergence test `se_sum > sd_sum` relies on equal inputs
+    //         giving bit-equal spectra (two inlined copies could contract
+    //         their multiply-adds differently) ----
+    if (warp == 0) {
+      const int j = 2 * lane;
+      rfft_to_scratch(0.f, 0.f, s.ebuf[PL + j], s.ebuf[PL + j + 1], tw, lane,
+                      zr, zi);
+      for (int k = lane; k < P1; k += 32) {
+        float re, im;
+        split_bin(s, zr, zi, k, re, im);
         const float den = s.vecs[V_XPOW][k] + 1e-10f;
         re = re / den;
         im = im / den;
@@ -301,53 +464,40 @@ aec_package_kernel(Args a) {
         }
         s.ef[0][k] = re * kMu;
         s.ef[1][k] = im * kMu;
-      } else {
-        for (int j = 0; j < P2; ++j) {
-          const int m = (j * k) & (P2 - 1);
-          re = fmaf(s.ew[j], s.cs[m], re);
-          im = fmaf(s.ew[j], s.sn[m], im);
-        }
-        if (k == 0 || k == PL) im = 0.f;
-        s.efw[0][k] = re;
-        s.efw[1][k] = im;
       }
+    } else if (warp <= 2) {
+      const float* src = warp == 1 ? s.ebuf : s.dbuf;
+      float (*dst)[P1] = warp == 1 ? s.efw : s.dfw;
+      const int j = 2 * lane;
+      rfft_to_scratch(src[j] * win128(s, j), src[j + 1] * win128(s, j + 1),
+                      src[PL + j] * win128(s, PL + j),
+                      src[PL + j + 1] * win128(s, PL + j + 1), tw, lane,
+                      zr, zi);
+      for (int k = lane; k < P1; k += 32)
+        split_bin(s, zr, zi, k, dst[0][k], dst[1][k]);
     }
     __syncthreads();
 
-    // ---- 6. FilterAdaptation: gradient spectrum per partition ----
-    for (int idx = t; idx < NP * P1; idx += THREADS) {
-      const int i = idx / P1, k = idx % P1;
+    // ---- 5. FilterAdaptation: warp w owns partitions w, w + 4, w + 8.
+    //         Gradient spectrum conj(X) E -> inverse -> keep the first 64
+    //         samples -> forward -> add into the filter ----
+    for (int i = warp; i < NP; i += WARPS) {
       const int p = (head + i) % NP;
-      const float xr = s.xf[0][p][k], xi = s.xf[1][p][k];
-      const float er = s.ef[0][k], ei = s.ef[1][k];
-      s.grad[0][i][k] = xr * er + xi * ei;
-      s.grad[1][i][k] = xr * ei - xi * er;
-    }
-    __syncthreads();
-    // hop 1: spectrum -> first 64 samples of the scaled inverse
-    for (int idx = t; idx < NP * PL; idx += THREADS) {
-      const int i = idx / PL, j = idx % PL;
-      float acc = 0.5f * s.grad[0][i][0] +
-                  0.5f * ((j & 1) ? -s.grad[0][i][PL] : s.grad[0][i][PL]);
-      for (int k = 1; k < PL; ++k) {
-        const int m = (k * j) & (P2 - 1);
-        acc = fmaf(s.grad[0][i][k], s.cs[m], acc);
-        acc = fmaf(s.grad[1][i][k], s.sn[m], acc);
+      float2 a0, a1;
+      irfft(s, [&](int k, float& re, float& im) {
+        const float xr = s.xf[0][p][k], xi = s.xf[1][p][k];
+        const float er = s.ef[0][k], ei = s.ef[1][k];
+        re = xr * er + xi * ei;
+        im = xr * ei - xi * er;
+      }, tw, lane, a0, a1);
+      rfft_to_scratch(a0.x * kInvN, a0.y * kInvN, 0.f, 0.f, tw, lane, zr, zi);
+      for (int k = lane; k < P1; k += 32) {
+        float re, im;
+        split_bin(s, zr, zi, k, re, im);
+        s.wf[0][i][k] += re;
+        s.wf[1][i][k] += im;     // zero at k = 0 and 64
       }
-      s.h64[i][j] = acc * (2.0f / P2);
-    }
-    __syncthreads();
-    // hop 2: the 64-sample signal (upper half zero) -> spectrum, added
-    for (int idx = t; idx < NP * P1; idx += THREADS) {
-      const int i = idx / P1, k = idx % P1;
-      float re = 0.f, im = 0.f;
-      for (int j = 0; j < PL; ++j) {
-        const int m = (j * k) & (P2 - 1);
-        re = fmaf(s.h64[i][j], s.cs[m], re);
-        im = fmaf(s.h64[i][j], s.sn[m], im);
-      }
-      s.wf[0][i][k] += re;
-      if (k != 0 && k != PL) s.wf[1][i][k] += im;
+      __syncwarp();              // the scratch row is free again
     }
     __syncthreads();
 
@@ -488,25 +638,27 @@ aec_package_kernel(Args a) {
     }
     __syncthreads();
 
-    // ---- 9. output inverse fft + overlap-add ----
-    {
-      const int j = t;
-      float acc = 0.5f * s.efw[0][0] + 0.5f * ((j & 1) ? -s.efw[0][PL] : s.efw[0][PL]);
-      for (int k = 1; k < PL; ++k) {
-        const int m = (k * j) & (P2 - 1);
-        acc = fmaf(s.efw[0][k], s.cs[m], acc);
-        acc = fmaf(-s.efw[1][k], s.sn[m], acc);
+    // ---- 9. output inverse fft (of the conjugate) + overlap-add, inside
+    //         the lanes of warp 0; nothing it touches is written by the
+    //         other warps before the next block's first barrier ----
+    if (warp == 0) {
+      float2 a0, a1;
+      irfft(s, [&](int k, float& re, float& im) {
+        re = s.efw[0][k];
+        im = -s.efw[1][k];
+      }, tw, lane, a0, a1);
+      const float lo[2] = {a0.x * kInvN, a0.y * kInvN};
+      const float hi[2] = {a1.x * kInvN, a1.y * kInvN};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = 2 * lane + r;
+        const float first = lo[r] * s.win[j] + s.obuf[j];
+        s.obuf[j] = hi[r] * s.win[PL - j];
+        s.stream[blk * PL + j] = fminf(fmaxf(first, -32768.0f), 32767.0f);
       }
-      s.t128[j] = acc * (2.0f / P2);
     }
-    __syncthreads();
-    if (t < PL) {
-      const float first = s.t128[t] * s.win[t] + s.obuf[t];
-      s.obuf[t] = s.t128[PL + t] * s.win[PL - t];
-      s.stream[blk * PL + t] = fminf(fmaxf(first, -32768.0f), 32767.0f);
-    }
-    __syncthreads();
   }
+  __syncthreads();
 
   // ---- package output (48-sample carry) and state write-back ----
   for (int i = t; i < PKG; i += THREADS)

@@ -57,8 +57,11 @@
 // Everything is float32 on the CUDA cores: no tensor cores, no TF32
 // (reduced-precision DFT passes drift through the adaptation loop).  The
 // transcendentals use the accurate logf/expf/sinf/cosf (no fast math).
-// The per-stream decision logic still runs on one thread and the state
-// still moves as 4-byte accesses; both are later work.
+// The per-stream decision logic runs on one warp (sums and rank selection
+// across its lanes, the scalar rest on lane 0) while the others form the
+// comfort noise.  The state moves as coalesced 4-byte accesses: 16-byte
+// accesses for the slices that allow them were measured and gained nothing
+// (the kernel is not bound by its load and store instructions).
 
 #include <cuda_runtime.h>
 
@@ -132,7 +135,7 @@ struct Smem {
   float near[PKG], stream[PKG];
   float df[2][P1], dfw[2][P1], efw[2][P1], ef[2][P1], yf[2][P1];
   float zr[WARPS][PL], zi[WARPS][PL];   // each warp's FFT scratch row
-  float noise_pow[P1], coh_de[P1], coh_xd[P1], en[NP];
+  float noise_pow[P1], coh_de[P1], coh_xd[P1], cn[2][P1], en[NP];
   Scalars sc;
 };
 
@@ -176,6 +179,13 @@ __device__ __forceinline__ Tw load_twiddles(const float* consts, int lane) {
 // a * (c + i s)
 __device__ __forceinline__ float2 cmul(float2 a, float c, float s) {
   return make_float2(a.x * c - a.y * s, a.x * s + a.y * c);
+}
+
+// The sum of v over the warp, in every lane (a fixed butterfly order).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) v += __shfl_xor_sync(FULL, v, h);
+  return v;
 }
 
 // One radix-2 stage across lanes l and l ^ h.  Decimation in frequency
@@ -491,24 +501,23 @@ aec_package_kernel(Args a) {
         im = xr * ei - xi * er;
       }, tw, lane, a0, a1);
       rfft_to_scratch(a0.x * kInvN, a0.y * kInvN, 0.f, 0.f, tw, lane, zr, zi);
+      float energy = 0.f;        // of the updated partition, for step 7
       for (int k = lane; k < P1; k += 32) {
         float re, im;
         split_bin(s, zr, zi, k, re, im);
-        s.wf[0][i][k] += re;
-        s.wf[1][i][k] += im;     // zero at k = 0 and 64
+        const float wr = s.wf[0][i][k] + re;
+        const float wi = s.wf[1][i][k] + im;     // im is zero at k = 0, 64
+        s.wf[0][i][k] = wr;
+        s.wf[1][i][k] = wi;
+        energy += wr * wr + wi * wi;
       }
+      energy = warp_sum(energy);
+      if (lane == 0) s.en[i] = energy;
       __syncwarp();              // the scratch row is free again
     }
     __syncthreads();
 
     // ---- 7. NonLinearProcessing ----
-    if (t < NP) {     // partition energies of the updated filter
-      float acc = 0.f;
-      for (int k = 0; k < P1; ++k)
-        acc += s.wf[0][t][k] * s.wf[0][t][k] + s.wf[1][t][k] * s.wf[1][t][k];
-      s.en[t] = acc;
-    }
-    __syncthreads();
     int didx = s.sc.delay_idx;
     if (f_upd) {      // PartitionDelay: the FIRST max wins
       float mx = s.en[0];
@@ -543,70 +552,83 @@ aec_package_kernel(Args a) {
     }
     __syncthreads();
 
-    if (t == 0) {     // the per-stream decision logic, serial
+    // The per-stream decision logic on warp 0: the sums and the rank
+    // selection across its lanes, the scalar rest on lane 0.  Warps 1..3
+    // form the comfort noise meanwhile, which does not depend on it.
+    if (warp == 0) {
       Scalars& c = s.sc;
-      float sd_sum = 0.f, se_sum = 0.f;
-      for (int k = 0; k < P1; ++k) {
-        sd_sum += s.vecs[V_SD][k];
-        se_sum += s.vecs[V_SE][k];
-      }
-      c.diverge = ((c.diverge != 0 ? 1.05f * se_sum : se_sum) > sd_sum) ? 1 : 0;
-      c.reset = se_sum > 19.95f * sd_sum;
-      c.delay_idx = didx;
-
-      float sum_xd = 0.f, sum_de = 0.f, v[kPrefBand];
+      // one instruction stream for both sums: equal spectra give equal sums
+      const float sd_sum = warp_sum(s.vecs[V_SD][lane] + s.vecs[V_SD][lane + 32] +
+                                    (lane == 0 ? s.vecs[V_SD][PL] : 0.f));
+      const float se_sum = warp_sum(s.vecs[V_SE][lane] + s.vecs[V_SE][lane + 32] +
+                                    (lane == 0 ? s.vecs[V_SE][PL] : 0.f));
+      const bool in_band = lane < kPrefBand;
+      const float cxd = in_band ? s.coh_xd[kMinPref + lane] : 0.f;
+      const float cde = in_band ? s.coh_de[kMinPref + lane] : 0.f;
+      const float sum_xd = warp_sum(cxd), sum_de = warp_sum(cde);
+      // rank selection, every band lane its own rank; ties go to the
+      // lower index; the lane of rank q holds the q-th order statistic
+      const float v = fminf(cde, 1.0f - cxd);
+      int rank = 0;
+#pragma unroll
       for (int j = 0; j < kPrefBand; ++j) {
-        const int k = kMinPref + j;
-        sum_xd += s.coh_xd[k];
-        sum_de += s.coh_de[k];
-        v[j] = fminf(s.coh_de[k], 1.0f - s.coh_xd[k]);
+        const float vj = __shfl_sync(FULL, v, j);
+        rank += (vj < v) || (vj == v && j < lane);
       }
-      const float h_xd_avg = 1.0f - sum_xd * kInvPb;
-      const float h_de_avg = sum_de * kInvPb;
-      float xd_min = (h_xd_avg < 0.75f && h_xd_avg < c.xd_avg_min) ? h_xd_avg : c.xd_avg_min;
-      if (h_de_avg > 0.98f && h_xd_avg > 0.9f)
-        c.st_near = 1;
-      else if (h_de_avg < 0.95f || h_xd_avg < 0.8f)
-        c.st_near = 0;
+      const unsigned m75 = __ballot_sync(FULL, in_band && rank == kQ75);
+      const unsigned m50 = __ballot_sync(FULL, in_band && rank == kQ50);
+      const float q75 = __shfl_sync(FULL, v, m75 ? 31 - __clz(m75) : 0);
+      const float q50 = __shfl_sync(FULL, v, m50 ? 31 - __clz(m50) : 0);
+      const float v_q75 = m75 ? q75 : 0.f, v_q50 = m50 ? q50 : 0.f;
 
-      // rank selection; ties go to the lower index
-      float v_q75 = 0.f, v_q50 = 0.f;
-      for (int i = 0; i < kPrefBand; ++i) {
-        int rank = 0;
-        for (int j = 0; j < kPrefBand; ++j)
-          rank += (v[j] < v[i]) || (v[j] == v[i] && j < i);
-        if (rank == kQ75) v_q75 = v[i];
-        if (rank == kQ50) v_q50 = v[i];
-      }
-      const bool is_min1 = xd_min == 1.0f;
-      const bool near1 = c.st_near == 1;
-      c.is_min1 = is_min1;
-      c.near1 = near1;
-      c.echo = (is_min1 || near1) ? 0 : 1;
-      float od = is_min1 ? kMinOd : c.over_drive;
-      c.h_fb = near1 ? h_de_avg : (is_min1 ? h_xd_avg : v_q75);
-      const float h_fb_low = near1 ? h_de_avg : (is_min1 ? h_xd_avg : v_q50);
+      if (lane == 0) {
+        c.diverge = ((c.diverge != 0 ? 1.05f * se_sum : se_sum) > sd_sum) ? 1 : 0;
+        c.reset = se_sum > 19.95f * sd_sum;
+        c.delay_idx = didx;
+        const float h_xd_avg = 1.0f - sum_xd * kInvPb;
+        const float h_de_avg = sum_de * kInvPb;
+        float xd_min = (h_xd_avg < 0.75f && h_xd_avg < c.xd_avg_min) ? h_xd_avg : c.xd_avg_min;
+        if (h_de_avg > 0.98f && h_xd_avg > 0.9f)
+          c.st_near = 1;
+        else if (h_de_avg < 0.95f || h_xd_avg < 0.8f)
+          c.st_near = 0;
+        const bool is_min1 = xd_min == 1.0f;
+        const bool near1 = c.st_near == 1;
+        c.is_min1 = is_min1;
+        c.near1 = near1;
+        c.echo = (is_min1 || near1) ? 0 : 1;
+        float od = is_min1 ? kMinOd : c.over_drive;
+        c.h_fb = near1 ? h_de_avg : (is_min1 ? h_xd_avg : v_q75);
+        const float h_fb_low = near1 ? h_de_avg : (is_min1 ? h_xd_avg : v_q50);
 
-      // minimum tracking
-      const bool new_min = h_fb_low < 0.6f && h_fb_low < c.fb_local_min;
-      float fb_local = new_min ? h_fb_low : c.fb_local_min;
-      if (new_min) {
-        c.fb_min = h_fb_low;
-        c.new_min = 1;
-        c.min_ctr = 0;
+        // minimum tracking
+        const bool new_min = h_fb_low < 0.6f && h_fb_low < c.fb_local_min;
+        float fb_local = new_min ? h_fb_low : c.fb_local_min;
+        if (new_min) {
+          c.fb_min = h_fb_low;
+          c.new_min = 1;
+          c.min_ctr = 0;
+        }
+        c.fb_local_min = fminf(fb_local + kStepLocal, 1.0f);
+        c.xd_avg_min = fminf(xd_min + kStepXd, 1.0f);
+        if (c.new_min == 1) c.min_ctr += 1;
+        if (c.min_ctr == 2) {
+          c.new_min = 0;
+          c.min_ctr = 0;
+          od = fmaxf(kTargetSupp / (logf(c.fb_min + 1e-10f) + 1e-10f), kMinOd);
+        }
+        c.over_drive = od;
+        c.over_drive_sm = od < c.over_drive_sm
+            ? 0.99f * c.over_drive_sm + 0.01f * od
+            : 0.9f * c.over_drive_sm + 0.1f * od;
       }
-      c.fb_local_min = fminf(fb_local + kStepLocal, 1.0f);
-      c.xd_avg_min = fminf(xd_min + kStepXd, 1.0f);
-      if (c.new_min == 1) c.min_ctr += 1;
-      if (c.min_ctr == 2) {
-        c.new_min = 0;
-        c.min_ctr = 0;
-        od = fmaxf(kTargetSupp / (logf(c.fb_min + 1e-10f) + 1e-10f), kMinOd);
-      }
-      c.over_drive = od;
-      c.over_drive_sm = od < c.over_drive_sm
-          ? 0.99f * c.over_drive_sm + 0.01f * od
-          : 0.9f * c.over_drive_sm + 0.1f * od;
+    } else if (t - 32 < P1) {
+      const int k = t - 32;
+      const float r = static_cast<float>(a.rand[blk * P1 + k]) * (1.0f / 32768.0f);
+      const float ang = 6.28318530717959f * r;
+      const float noise = sqrtf(fmaxf(s.noise_pow[k], 0.f));
+      s.cn[0][k] = k == 0 ? 0.f : noise * cosf(ang);
+      s.cn[1][k] = (k == 0 || k == PL) ? 0.f : -(noise * sinf(ang));
     }
     __syncthreads();
 
@@ -624,14 +646,9 @@ aec_package_kernel(Args a) {
         h_nl = expf((c.over_drive_sm * s.odcurve[t]) * logf(h_nl + 1e-30f));
         efr = efr * h_nl;
         efi = efi * h_nl * -1.0f;
-        const float r = static_cast<float>(a.rand[blk * P1 + t]) * (1.0f / 32768.0f);
-        const float ang = 6.28318530717959f * r;
-        const float noise = sqrtf(fmaxf(s.noise_pow[t], 0.f));
-        const float cnr = t == 0 ? 0.f : noise * cosf(ang);
-        const float cni = (t == 0 || t == PL) ? 0.f : -(noise * sinf(ang));
         const float lam2 = sqrtf(fmaxf(1.0f - h_nl * h_nl, 0.0f));
-        s.efw[0][t] = efr + lam2 * cnr;
-        s.efw[1][t] = efi + lam2 * cni;
+        s.efw[0][t] = efr + lam2 * s.cn[0][t];
+        s.efw[1][t] = efi + lam2 * s.cn[1][t];
       }
       if (c.reset)
         for (int i = t; i < 2 * NP * P1; i += THREADS) (&s.wf[0][0][0])[i] = 0.f;

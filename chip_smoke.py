@@ -10,9 +10,8 @@ non-zero and prints no result):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      no CUDA device -> exit 1
   2. build the aec_package kernel (nvcc, sm_90a), with ptxas's report
-  3. main path: RecordChain(4096, 16000) in its defaults, the card among
-     them
-     (NS+AEC+AGC+VAD, AGC 5 dB), 4 chunks of K=25 packages of seeded
+  3. main path: RecordChain(4096, 16000) in its defaults (the card,
+     NS+AEC+AGC+VAD, AGC 5 dB), 4 chunks of K=25 packages of seeded
      audio; the kernel's launch count over the run must equal the steady
      packages (96); outputs int16, AEC output finite; steady chunk time
      and streams = B * audio_s / wall

@@ -129,9 +129,10 @@ def cuda_device():
 @pytest.mark.parametrize("batch", [4, 257])
 def test_kernel_matches_package_body(cuda_device, batch):
     """The CUDA package kernel against its plain version, from an adapted
-    state, rel <= 1e-4 on the output and every state field."""
+    state: rel <= 1e-4 on the output and every float state field, equality
+    on every integer state field (the discrete decisions)."""
     from wmix_tpu_torch.engine.aec_package import (AecBatchPackage,
-                                                   STATE_FIELDS,
+                                                   SCALAR_I, STATE_FIELDS,
                                                    _kernel_inputs,
                                                    build_far_body,
                                                    package_body,
@@ -164,4 +165,7 @@ def test_kernel_matches_package_body(cuda_device, batch):
         return float((x - y).abs().max() / y.abs().max().clamp_min(1.0))
     assert rel(out_k, out_p) <= 1e-4
     for k in STATE_FIELDS:
-        assert rel(st_k[k], st_p[k]) <= 1e-4, k
+        if k in SCALAR_I:
+            assert torch.equal(st_k[k], st_p[k]), k
+        else:
+            assert rel(st_k[k], st_p[k]) <= 1e-4, k

@@ -42,7 +42,7 @@
 // scratch row of its warp, from which the split step reads bins k and
 // 64 - k; an inverse forms its merged input straight from the spectrum
 // in shared memory.  All twiddles come from the cos/sin table of
-// 2 pi m / 128 in `consts` (the six a lane needs sit in registers).
+// 2 pi m / 128 in `consts` (the five a lane needs sit in registers).
 //
 // The 30 transforms of a block: the near spectrum on one warp while the
 // others run FilterFar; the echo-estimate inverse on one warp while the
@@ -188,6 +188,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The span-1 stage, whose twiddle is one, in either direction: the lower
+// lane gets a + b, the upper a - b.
+__device__ __forceinline__ void butterfly1(float2& a, bool upper) {
+  const float2 p = make_float2(__shfl_xor_sync(FULL, a.x, 1),
+                               __shfl_xor_sync(FULL, a.y, 1));
+  a = upper ? make_float2(p.x - a.x, p.y - a.y)
+            : make_float2(a.x + p.x, a.y + p.y);
+}
+
 // One radix-2 stage across lanes l and l ^ h.  Decimation in frequency
 // (forward): lower = a + b, upper = (a - b) tw.  Decimation in time
 // (inverse, conjugate twiddle): lower = a + tw b, upper = a - tw b.
@@ -219,28 +228,26 @@ __device__ __forceinline__ void fft64_forward(float2& a0, float2& a1,
   a0 = make_float2(a0.x + a1.x, a0.y + a1.y);
   a1 = cmul(d, w.c[0], w.s[0]);
 #pragma unroll
-  for (int i = 1; i <= 5; ++i) {
+  for (int i = 1; i < 5; ++i) {
     const int h = 32 >> i;
-    const bool upper = (lane & h) != 0;
-    const float c = i < 5 ? w.c[i < 5 ? i : 0] : 1.f;
-    const float s = i < 5 ? w.s[i < 5 ? i : 0] : 0.f;
-    butterfly<false>(a0, h, upper, c, s);
-    butterfly<false>(a1, h, upper, c, s);
+    butterfly<false>(a0, h, (lane & h) != 0, w.c[i], w.s[i]);
+    butterfly<false>(a1, h, (lane & h) != 0, w.c[i], w.s[i]);
   }
+  butterfly1(a0, (lane & 1) != 0);
+  butterfly1(a1, (lane & 1) != 0);
 }
 
 // Inverse (conjugate kernel, unscaled): bins 2 brev5(lane) and
 // 2 brev5(lane) + 1 on entry, points lane and lane + 32 on return.
 __device__ __forceinline__ void fft64_inverse(float2& a0, float2& a1,
                                               const Tw& w, int lane) {
+  butterfly1(a0, (lane & 1) != 0);
+  butterfly1(a1, (lane & 1) != 0);
 #pragma unroll
-  for (int i = 5; i >= 1; --i) {
+  for (int i = 4; i >= 1; --i) {
     const int h = 32 >> i;
-    const bool upper = (lane & h) != 0;
-    const float c = i < 5 ? w.c[i < 5 ? i : 0] : 1.f;
-    const float s = i < 5 ? w.s[i < 5 ? i : 0] : 0.f;
-    butterfly<true>(a0, h, upper, c, s);
-    butterfly<true>(a1, h, upper, c, s);
+    butterfly<true>(a0, h, (lane & h) != 0, w.c[i], w.s[i]);
+    butterfly<true>(a1, h, (lane & h) != 0, w.c[i], w.s[i]);
   }
   const float2 m = cmul(a1, w.c[0], -w.s[0]);
   a1 = make_float2(a0.x - m.x, a0.y - m.y);

@@ -10,7 +10,10 @@ its steady program (the slow part of the set-up) once.  Gate: origin and the 8 k
 4 LSB, VAD flags equal (float32 reassociation through NS and AEC, as
 test_aec_pallas.py:62-90).  A second check starts the port's chain from
 the JAX chain's own state after chunk 1 (carried across with
-`state_from_numpy`) and holds chunk 2 to the same gate.
+`state_from_numpy`) and holds chunk 2 to the same gate.  On the same
+fixture the port's StreamServer must give the port's `run_chunk` outputs
+bit for bit.  `reset_slots` is held leaf by leaf (NS, AEC, AGC, VAD, the
+play FIFO) in both AEC layouts.
 
 The kernel test needs a CUDA device and skips without one; on a GPU
 machine without jax it runs alone:
@@ -100,22 +103,89 @@ def test_chain_from_carried_state(ref):
     _check(got, ref["outs"][1])
 
 
-def test_reset_slots_restarts_one_stream():
-    """A reset slot's state equals a fresh chain's; the other stream's
-    state is untouched."""
-    from wmix_tpu_torch.engine.chain import RecordChain, state_to_numpy
+def _check_reset(n_pkgs, kernel_layout):
+    """Run n_pkgs, reset slot 1: every leaf of slot 1 (NS, AEC, AGC, VAD
+    and the play FIFO) equals a fresh state's in the chain's current AEC
+    layout, and every leaf of slot 0 is untouched."""
+    from wmix_tpu_torch.engine import aec_package
+    from wmix_tpu_torch.engine.chain import RecordChain
+    from wmix_tpu_torch.engine.checkpoint import _leaves
     mic, play = _audio()
     ch = RecordChain(B, 16000, device="cpu")
-    ch.run_chunk(mic[:K], play[:K])
-    before = state_to_numpy(ch.state)
+    ch.run_chunk(mic[:n_pkgs], play[:n_pkgs])
+    assert isinstance(ch.state.aec,
+                      aec_package.PackageAecState) == kernel_layout
+    before = [x.clone() for x in _leaves(ch.state)]
     ch.reset_slots([1])
-    after = state_to_numpy(ch.state)
-    fresh = state_to_numpy(RecordChain(1, 16000, device="cpu").state)
-    for f in ("ns", "agc", "vad"):
-        for a, b0, fr in zip(getattr(after, f), getattr(before, f),
-                             getattr(fresh, f)):
-            np.testing.assert_array_equal(a[0], b0[0])
-            np.testing.assert_array_equal(a[1], fr[0])
+    after = _leaves(ch.state)
+    fresh = RecordChain(1, 16000, device="cpu").state
+    if kernel_layout:
+        fresh = fresh._replace(aec=aec_package.init_chain_aec(
+            1, ch.part_cap, "cpu"))
+    fresh = _leaves(fresh)
+    assert len(after) == len(before) == len(fresh)
+    changed = 0
+    for a, b0, fr in zip(after, before, fresh):
+        assert torch.equal(a[0], b0[0])
+        assert torch.equal(a[1], fr[0])
+        changed += int(not torch.equal(a[1], b0[1]))
+    # the run did move the slot away from its fresh state, AEC and FIFO
+    # included
+    assert changed > len(fresh) // 3
+    assert not torch.equal(before[-1][1], fresh[-1][0])      # play_fifo
+
+
+def test_reset_slots_restarts_one_stream():
+    """After the chain has converted to the kernel layout: a reset slot's
+    state equals a fresh chain's with `init_chain_aec` rows; the other
+    stream's state is untouched."""
+    _check_reset(K, kernel_layout=True)
+
+
+def test_reset_slots_in_the_exact_layout():
+    """The same during AEC start-up, in the exact ring layout."""
+    _check_reset(2, kernel_layout=False)
+
+
+def test_step_takes_tensors_on_its_device_without_a_copy():
+    from wmix_tpu_torch.engine.chain import RecordChain
+    ch = RecordChain(B, 16000, device="cpu", ns_enable=False,
+                     aec_enable=False)
+    mic, play = _audio()
+    t = torch.from_numpy(mic[0])
+    assert ch._on_device(t) is t
+    assert ch._on_device(mic[0]).dtype == torch.int16
+    a = ch.step(t, torch.from_numpy(play[0]))
+    b = RecordChain(B, 16000, device="cpu", ns_enable=False,
+                    aec_enable=False).step(mic[0], play[0])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_stream_server_on_the_chain_fixture(ref):
+    """The port's StreamServer, both slots opened before the first tick
+    and fed the fixture's packages through feed_batch and tick, gives the
+    port's run_chunk outputs bit for bit, and so stays within 4 LSB of the
+    JAX chain with VAD flags equal."""
+    from wmix_tpu_torch.engine.chain import RecordChain
+    from wmix_tpu_torch.service.stream_server import StreamServer
+    mic, play = _audio()
+    n = sum(CHUNK_LENS)
+    ch = RecordChain(B, 16000, device="cpu")
+    want = ch.run_chunk(mic, play)
+    srv = StreamServer(B, 16000, device="cpu")
+    hs = [srv.open_stream() for _ in range(B)]
+    got = []
+    for t in range(n):
+        srv.feed_batch(hs, mic[t], play[t])
+        srv.tick()
+        got.append(srv.read_batch(hs))
+    got = tuple(torch.from_numpy(np.stack([g[j] for g in got]))
+                for j in range(3))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for c in range(CHUNKS):
+        _check(tuple(_chunk(g, c) for g in got), ref["outs"][c])
 
 
 @pytest.fixture()

@@ -184,8 +184,19 @@ def test_copied_curves_and_windows_equal():
 # -------------------------------------------------------- jax-free import
 
 def test_import_is_jax_free():
-    code = ("import sys, wmix_tpu_torch, wmix_tpu_torch.engine.chain, "
-            "wmix_tpu_torch.kernels\n"
+    """Every module of the port, imported in a fresh interpreter, brings
+    in neither jax nor anything of wmix_tpu."""
+    code = ("import importlib, pkgutil, sys, wmix_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "wmix_tpu_torch.__path__, 'wmix_tpu_torch.')]\n"
+            "for n in names: importlib.import_module(n)\n"
+            "want = ['engine.chain', 'engine.checkpoint', 'engine.mixbus', "
+            "'kernels', 'staging', 'config', 'ops.g711', 'ops.mixer', "
+            "'service.stream_server', 'service.stream_daemon', "
+            "'utils.trace']\n"
+            "missing = [w for w in want "
+            "if 'wmix_tpu_torch.' + w not in sys.modules]\n"
+            "assert not missing, missing\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'wmix_tpu.')) or m == 'wmix_tpu']\n"
             "assert not bad, bad\n")
@@ -209,6 +220,8 @@ DEVICE_ENTRY_POINTS = [
     ("dsp.agc", "init_state"),
     ("dsp.vad", "init_state"),
     ("dsp.aec", "init_dev"),
+    ("engine.mixbus", "MixBus"),
+    ("staging", "PinnedRing"),
 ]
 
 

@@ -233,6 +233,13 @@ def _mm(x, m):
     """float32 matrix product; TF32 would cost hundreds of LSB of drift
     through the adaptation loop, so it must be off."""
     assert not torch.backends.cuda.matmul.allow_tf32
+    if x.device.type == "cpu":
+        # On the CPU this body is the served path, and a stream's output
+        # must not depend on how many streams share its batch (a server
+        # slot equals a dedicated chain bit for bit).  `x @ m` sums in
+        # another order for one row than for several; a batched product of
+        # one-row matrices gives every row the same sum whatever the batch.
+        return torch.bmm(x[:, None, :], m.expand(x.shape[0], -1, -1))[:, 0]
     return x @ m
 
 

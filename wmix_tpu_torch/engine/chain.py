@@ -157,13 +157,24 @@ class RecordChain:
         self.tick += 1
         return add_slot, g, sig, dyn
 
+    def _on_device(self, x) -> torch.Tensor:
+        """`x` as a tensor on the chain's device.  A tensor already there
+        is taken as it is (no copy); a pinned host tensor is sent without
+        blocking the host, so the caller must leave it alone until the
+        copy has run (an event recorded after the call says when); numpy
+        and pageable host tensors take a blocking copy."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, non_blocking=True)
+        return torch.as_tensor(x, device=self.device)
+
     def step(self, mic_pkg, play_pkg):
         """One 20 ms tick.  mic_pkg / play_pkg: [B, pkg_len] int16 (mic
         capture and the mixed output package written to the speaker this
-        tick).  Returns (origin int16 [B, pkg_len], pkg_8k int16 [B, n8k],
-        vad_flags int32 [B]) as tensors on the chain's device."""
-        mic = torch.as_tensor(mic_pkg, device=self.device)
-        play = torch.as_tensor(play_pkg, device=self.device)
+        tick), as numpy arrays or tensors (see `_on_device`).  Returns
+        (origin int16 [B, pkg_len], pkg_8k int16 [B, n8k], vad_flags int32
+        [B]) as tensors on the chain's device."""
+        mic = self._on_device(mic_pkg)
+        play = self._on_device(play_pkg)
         add_slot, get_slot, sig, dyn = self._plan_tick()
         steady = False
         if self.flags[1]:
@@ -178,8 +189,8 @@ class RecordChain:
         """K packages: mic_chunk / play_chunk [K, B, pkg_len] int16.
         Returns (origin [K, B, pkg_len] int16, pkg8k [K, B, n8k] int16,
         vad_flags [K, B] int32)."""
-        mic_chunk = torch.as_tensor(mic_chunk, device=self.device)
-        play_chunk = torch.as_tensor(play_chunk, device=self.device)
+        mic_chunk = self._on_device(mic_chunk)
+        play_chunk = self._on_device(play_chunk)
         outs = [self.step(mic_chunk[k], play_chunk[k])
                 for k in range(mic_chunk.shape[0])]
         return tuple(torch.stack([o[j] for o in outs]) for j in range(3))

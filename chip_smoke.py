@@ -46,8 +46,23 @@ non-zero and prints no result):
      saturation; drain_async twice; has_data): PCM, ring, cursors equal;
      G.711 on the card equal to its tables; ms per mix_waves and
      drain_async
-Then the kernel table as JSON (launches summed over phases 3, 7, 8 and 9,
-each counted from 0) and, last, {"ok": true, "device": {...}}.
+ 11. the other geometries at full width, fast mode: RecordChain(4096,
+     8000), RecordChain(4096, 16000, chn=2), RecordChain(4096, 32000), a
+     10 ms chain (16 kHz, AEC off) and the integer-only 32 kHz chain (NS
+     off), each 12 packages of seeded audio on the card; the first 4
+     streams against the port's CPU chain on the same audio: origin and
+     8 kHz package within 4 LSB and VAD flags equal (the integer-only
+     chain: equal); ms per steady package of each; the stereo chain's
+     kernel launches (packages - 4), none at any other geometry
+ 12. exact mode on the card: RecordChain(4096, 16000) built with
+     WMIX_EXACT=1, 10 packages, no kernel launch; the first 4 streams
+     against the port's CPU exact chain: equal, outputs and every state
+     leaf (were they not, the float64 log/exp/tanh/pow/cos/sin of card and
+     CPU are compared on 2^20 inputs each, and only where those differ
+     does the gate fall back to 1 LSB with the integer leaves equal); ms
+     per package beside phase 3's fast package
+Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9, 11
+and 12, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -472,6 +487,172 @@ def phase_mixbus() -> None:
           g711_equal_to_tables=True)
 
 
+def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
+    """A fresh RecordChain(B_MAIN, freq, **kw) on the card and one of 4
+    streams on the CPU, built in the environment's mode, over `n_pkgs`
+    packages of seeded audio (the CPU chain gets the first 4 streams).
+    Returns the outputs of those 4 streams from both, both chains, the
+    card's ms per package over the last `n_timed`, and the kernel
+    launches."""
+    from wmix_tpu_torch.engine.chain import RecordChain
+    n = freq // 1000 * kw.get("interval_ms", 20) * kw.get("chn", 1)
+    rng = np.random.RandomState(seed)
+    mic = (rng.randn(n_pkgs, B_MAIN, n) * 3000).astype(np.int16)
+    play = (rng.randn(n_pkgs, B_MAIN, n) * 5000).astype(np.int16)
+    mic_d = torch.from_numpy(mic).cuda()
+    play_d = torch.from_numpy(play).cuda()
+    aec_package.package_step.launches = 0
+    card_chain = RecordChain(B_MAIN, freq, **kw)    # default: the card
+    if card_chain.device.type != "cuda":
+        raise AssertionError("the chain's default device is not the card")
+    got = []
+    for k in range(n_pkgs):
+        if k == n_pkgs - n_timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        got.append([v[:4].cpu() for v in card_chain.step(mic_d[k],
+                                                         play_d[k])])
+    torch.cuda.synchronize()
+    pkg_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    launches = aec_package.package_step.launches
+    if int(card_chain.aec_nonfinite):
+        raise AssertionError("non-finite AEC output samples")
+    cpu_chain = RecordChain(4, freq, device="cpu", **kw)
+    want = [[v.clone() for v in cpu_chain.step(mic[k, :4], play[k, :4])]
+            for k in range(n_pkgs)]
+    n8k = 8 * kw.get("interval_ms", 20)
+    for o, p8, vf in got:
+        if (o.dtype, p8.dtype, tuple(o.shape), tuple(p8.shape),
+                tuple(vf.shape)) != (torch.int16, torch.int16, (4, n),
+                                     (4, n8k), (4,)):
+            raise AssertionError("chain output shapes or types")
+    return got, want, card_chain, cpu_chain, pkg_ms, launches
+
+
+def compare_outputs(got, want):
+    """(max LSB of origin, of pkg8k, VAD flags equal, share of equal origin
+    samples) between two lists of (origin, pkg8k, vflags)."""
+    d = torch.stack([(g[0].int() - w[0].int()).abs()
+                     for g, w in zip(got, want)])
+    d8 = torch.stack([(g[1].int() - w[1].int()).abs()
+                      for g, w in zip(got, want)])
+    vad = all(bool(torch.equal(g[2], w[2])) for g, w in zip(got, want))
+    return int(d.max()), int(d8.max()), vad, float((d == 0).float().mean())
+
+
+def phase_geometries(aec_package, main_pkg_ms, name_power) -> dict:
+    """11. every other geometry at full width on the card, fast mode."""
+    N, TIMED = 12, 6
+    cases = [
+        ("8k_mono", 8000, {}, LSB, 0),
+        ("16k_stereo", 16000, dict(chn=2), LSB, N - 4),
+        ("32k_mono", 32000, {}, LSB, 0),
+        ("16k_10ms_no_aec", 16000, dict(interval_ms=10, aec_enable=False),
+         LSB, 0),
+        ("32k_mono_no_ns", 32000, dict(ns_enable=False), 0, 0),
+    ]
+    rows, launches_by_case = {}, {}
+    for i, (name, freq, kw, lsb, want_launches) in enumerate(cases):
+        got, want, card_chain, _cpu, pkg_ms, launches = run_chain_on_card(
+            aec_package, freq, kw, N, TIMED, seed=20 + i)
+        if not card_chain.fast:
+            raise AssertionError("phase 11 runs in fast mode")
+        d, d8, vad, share = compare_outputs(got, want)
+        if d > lsb or d8 > lsb or not vad:
+            raise AssertionError(f"phase 11 {name}: card vs cpu {d} and "
+                                 f"{d8} LSB (gate {lsb}), VAD equal {vad}")
+        if launches != want_launches:
+            raise AssertionError(f"phase 11 {name}: {launches} kernel "
+                                 f"launches, expected {want_launches}")
+        kernel_layout = isinstance(card_chain.state.aec,
+                                   aec_package.PackageAecState)
+        if kernel_layout != (want_launches > 0):
+            raise AssertionError(f"phase 11 {name}: AEC layout")
+        if not any(bool(g[0].any()) for g in got):
+            raise AssertionError(f"phase 11 {name}: silent output")
+        launches_by_case[name] = launches
+        rows[name] = dict(
+            freq=freq, **kw, packages=N, max_lsb_origin=d, max_lsb_8k=d8,
+            vad_flags_equal=vad, equal_share=round(share, 6), gate_lsb=lsb,
+            steady_pkg_ms=round(pkg_ms, 3),
+            over_16k_mono=round(pkg_ms / main_pkg_ms, 3),
+            kernel_launches=launches)
+    phase("geometries", batch=B_MAIN, card=name_power,
+          pkg_ms_16k_mono_phase3=round(main_pkg_ms, 3), **rows)
+    return launches_by_case
+
+
+def transcendental_mismatches() -> dict:
+    """How many of 2^20 inputs each give another float32 on the card than
+    on the CPU through (float)f((double)x)."""
+    from wmix_tpu_torch.dsp import floatops
+    rng = np.random.RandomState(12)
+    n = 1 << 20
+    pos = torch.from_numpy((10.0 ** rng.uniform(-6, 9, n)).astype(np.float32))
+    sym = torch.from_numpy((rng.randn(n) * 8).astype(np.float32))
+    unit = torch.from_numpy(rng.uniform(0.01, 1, n).astype(np.float32))
+    expo = torch.from_numpy(rng.uniform(1, 12, n).astype(np.float32))
+    out = {}
+    for name, args in (("flog", (pos,)), ("fexp", (sym,)), ("ftanh", (sym,)),
+                       ("fcosf", (sym,)), ("fsinf", (sym,)),
+                       ("fpowf", (unit, expo)),
+                       ("fpow_div", (pos, pos.flip(0), unit))):
+        fn = getattr(floatops, name)
+        a = fn(*args)
+        b = fn(*(x.cuda() for x in args)).cpu()
+        out[name] = int((a != b).sum())
+    return out
+
+
+def phase_exact(aec_package, main_pkg_ms, name_power) -> int:
+    """12. exact mode on the card against exact mode on the CPU."""
+    from wmix_tpu_torch.engine.checkpoint import _leaves
+    N, TIMED = 10, 4
+    old = os.environ.get("WMIX_EXACT")
+    os.environ["WMIX_EXACT"] = "1"
+    try:
+        got, want, card_chain, cpu_chain, pkg_ms, launches = \
+            run_chain_on_card(aec_package, 16000, {}, N, TIMED, seed=30)
+    finally:
+        if old is None:
+            del os.environ["WMIX_EXACT"]
+        else:
+            os.environ["WMIX_EXACT"] = old
+    if card_chain.fast or cpu_chain.fast:
+        raise AssertionError("phase 12: the chains are not in exact mode")
+    if launches != 0 or isinstance(card_chain.state.aec,
+                                   aec_package.PackageAecState):
+        raise AssertionError(f"phase 12: exact mode launched the kernel "
+                             f"{launches} times")
+    d, d8, vad, share = compare_outputs(got, want)
+    leaves = [(a[:4].cpu(), b) for a, b in
+              zip(_leaves(card_chain.state), _leaves(cpu_chain.state))]
+    unequal = sum(not torch.equal(a, b) for a, b in leaves)
+    int_unequal = sum(not torch.equal(a, b) for a, b in leaves
+                      if not a.is_floating_point())
+    mism = None
+    if d or d8 or not vad or unequal:
+        # equal is the gate; 1 LSB only where the card's float64 library
+        # functions are shown to differ from the CPU's
+        mism = transcendental_mismatches()
+        if not any(mism.values()) or d > 1 or d8 > 1 or not vad or \
+                int_unequal:
+            raise AssertionError(
+                f"phase 12: card vs cpu exact chain {d} and {d8} LSB, VAD "
+                f"equal {vad}, {unequal} state leaves differ "
+                f"({int_unequal} integer); float64 functions differing on "
+                f"2^20 inputs: {mism}")
+    phase("exact_mode", batch=B_MAIN, card=name_power, packages=N,
+          kernel_launches=launches, max_lsb_origin=d, max_lsb_8k=d8,
+          vad_flags_equal=vad, equal_share=round(share, 6),
+          state_leaves=len(leaves), state_leaves_unequal=unequal,
+          gate="equal" if mism is None else "1 LSB, integer leaves equal",
+          float64_function_mismatches=mism,
+          pkg_ms=round(pkg_ms, 3), fast_pkg_ms_phase3=round(main_pkg_ms, 3),
+          exact_over_fast=round(pkg_ms / main_pkg_ms, 3))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -653,6 +834,10 @@ def main() -> int:
     by_phase.update(phase_server(aec_package, mic, play, outs))
     by_phase["9"] = phase_daemon(aec_package, kernels)
     phase_mixbus()
+    for case, n in phase_geometries(aec_package, pkg_ms_main,
+                                    name_power).items():
+        by_phase[f"11_{case}"] = n
+    by_phase["12"] = phase_exact(aec_package, pkg_ms_main, name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{

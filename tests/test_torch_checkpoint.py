@@ -173,13 +173,18 @@ def test_wmix_tpu_snapshot_restores_into_the_port(layout, monkeypatch):
     want = state_from_numpy(jax.tree_util.tree_map(np.array, jc.state),
                             device="cpu")
     _assert_states_equal(port.state, want)
-    # and the port's own snapshot of it carries the same header and leaves
+    # and the port's own snapshot of it carries the same leaves and, but for
+    # its own additions, the same header
     with np.load(io.BytesIO(blob)) as zj, \
             np.load(io.BytesIO(checkpoint.snapshot(port))) as zp:
         assert sorted(zj.files) == sorted(zp.files)
         hj = json.loads(bytes(zj["header"].tobytes()).decode())
         hp = json.loads(bytes(zp["header"].tobytes()).decode())
+        # the port's header adds what the reference's does not write
+        assert {k: hp.pop(k) for k in ("interval_ms", "aec_interval_ms",
+                                       "exact")} == \
+            {"interval_ms": 20, "aec_interval_ms": 400, "exact": False}
         assert hj == hp
-        for k in zj.files:
+        for k in set(zj.files) - {"header"}:
             np.testing.assert_array_equal(zj[k], zp[k], err_msg=k)
 

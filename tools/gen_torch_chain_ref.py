@@ -1,0 +1,118 @@
+"""Reference outputs of `wmix_tpu`'s exact-mode RecordChain for the
+geometries whose live JAX chain is too dear for the default tests.
+
+    python tools/gen_torch_chain_ref.py [case ...]
+
+runs `wmix_tpu.engine.chain.RecordChain` on the CPU under x64 with
+WMIX_EXACT=1 for each case of `CASES` (all of them without arguments) on
+audio made from the case's seed, and writes
+`tests/data/torch_chain_exact_<case>.npz`: the int16 `origin` and 8 kHz
+packages and the VAD flags of every package, and, of the final state, one
+SHA-256 per leaf with the leaf's name (the AEC's far-end stores alone
+would be 100 KB a case in full).  A chain costs one XLA program per plan
+signature, one to four CPU-minutes a case.
+
+tests/test_torch_chain_exact.py holds wmix_tpu_torch's exact chain
+bit-equal to these files, and a test there marked `slow` calls
+`reference_run` again and compares it with the file.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA_DIR = os.path.join(REPO, "tests", "data")
+
+B = 2
+# name -> (freq, chain keywords, packages, seed)
+CASES = {
+    "16k_mono": (16000, {}, 8, 101),
+    "16k_stereo": (16000, dict(chn=2), 8, 102),
+    "8k_mono": (8000, {}, 8, 103),
+    "8k_stereo_100ms": (8000, dict(chn=2, aec_interval_ms=100, part_cap=32),
+                        8, 104),
+    "16k_10ms": (16000, dict(interval_ms=10, aec_enable=False), 8, 105),
+    "32k_stereo": (32000, dict(chn=2), 5, 106),
+}
+
+
+def path_of(case: str) -> str:
+    return os.path.join(DATA_DIR, f"torch_chain_exact_{case}.npz")
+
+
+def audio(case: str):
+    """(mic, play) int16 [K, B, pkg_len * chn], interleaved: a far end of
+    noise bursts and a microphone that hears a tone, noise and the far
+    end's echo."""
+    freq, kw, n_pkgs, seed = CASES[case]
+    chn = kw.get("chn", 1)
+    n = freq // 1000 * kw.get("interval_ms", 20)
+    rng = np.random.RandomState(seed)
+    play = rng.randn(n_pkgs, B, n, chn) * 5000
+    t = (np.arange(n_pkgs * n).reshape(n_pkgs, 1, n, 1)) / freq
+    tone = 2500 * np.sin(2 * np.pi * rng.uniform(200, 1500, (1, B, 1, chn))
+                         * t)
+    mic = tone + rng.randn(n_pkgs, B, n, chn) * 800 + \
+        0.4 * np.roll(play, 23, axis=2)
+
+    def cast(x):
+        return np.clip(np.round(x), -32768, 32767).astype(np.int16).reshape(
+            n_pkgs, B, n * chn)
+    return cast(mic), cast(play)
+
+
+def leaf_digest(arr: np.ndarray) -> str:
+    arr = np.ascontiguousarray(arr)
+    h = hashlib.sha256()
+    h.update(f"{arr.dtype.str}{arr.shape}".encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def reference_run(case: str) -> dict:
+    """The case through `wmix_tpu` in exact mode: outputs, final-state
+    digests and leaf names, as arrays ready for `np.savez_compressed`."""
+    os.environ["WMIX_EXACT"] = "1"
+    os.environ.pop("WMIX_FAST", None)
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_allow_excess_precision" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_allow_excess_precision=false").strip()
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from wmix_tpu.dsp import floatops
+    from wmix_tpu.engine.chain import RecordChain
+    assert not floatops.fast_mode()
+    freq, kw, n_pkgs, _seed = CASES[case]
+    mic, play = audio(case)
+    ch = RecordChain(B, freq, **kw)
+    outs = [[np.asarray(v) for v in ch.step(mic[k], play[k])]
+            for k in range(n_pkgs)]
+    leaves = jax.tree_util.tree_flatten_with_path(ch.state)[0]
+    return dict(
+        origin=np.stack([o[0] for o in outs]).astype(np.int16),
+        pkg8k=np.stack([o[1] for o in outs]).astype(np.int16),
+        vflags=np.stack([o[2] for o in outs]).astype(np.int32),
+        leaf_names=np.array([jax.tree_util.keystr(p) for p, _ in leaves]),
+        leaf_sha256=np.array([leaf_digest(np.asarray(x))
+                              for _, x in leaves]))
+
+
+def main(argv) -> None:
+    import time
+    sys.path.insert(0, REPO)
+    os.makedirs(DATA_DIR, exist_ok=True)
+    for case in argv or list(CASES):
+        t0 = time.time()
+        np.savez_compressed(path_of(case), **reference_run(case))
+        print(f"{case}: {os.path.getsize(path_of(case))} bytes, "
+              f"{time.time() - t0:.0f} s", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,4 +1,4 @@
-"""Acoustic echo cancellation: the webrtc AEC block math, fast mode, batched.
+"""Acoustic echo cancellation: the webrtc AEC block math, batched.
 
 Port of `wmix_tpu/dsp/aec.py`: the constants and curve tables, the host
 helpers the planner needs (the comfort-noise LCG, C integer division and
@@ -12,6 +12,14 @@ package kernel (`engine/aec_package.py`).
 Every state leaf carries a leading stream axis [B].  The gate flags and
 ring positions are host values of the planner, shared by the batch, so
 they arrive as Python ints and bools.
+
+Modes (`exact=` argument, None meaning the environment's, see
+`floatops`): fast mode sums with `torch.sum` and transforms with
+`torch.fft`; exact mode accumulates FilterFar partition by partition in
+the C order, folds the partition energies, the PSD sums and the coherence
+averages left to right and transforms with the AEC's Ooura rdft, and is
+bit-equal to `wmix_tpu`'s exact mode.  Every other float op is one
+rounding per op in both modes.  `mult` is 1 at 8 kHz and 2 at 16 kHz.
 """
 from __future__ import annotations
 
@@ -23,7 +31,9 @@ import numpy as np
 import torch
 
 from wmix_tpu_torch.device import resolve_device
-from wmix_tpu_torch.dsp.floatops import fcosf, flog, fpowf, fsinf, fsqrtf
+from wmix_tpu_torch.dsp.floatops import (cdiv, divs, fcosf, flog, fpowf, fsinf,
+                                         fsqrtf, is_exact, seq_sum,
+                                         seq_sum_multi)
 from wmix_tpu_torch.ops.rdft import aec_rdft_traced
 
 F32 = torch.float32
@@ -196,16 +206,33 @@ def _windowed(buf, c):
                       buf[..., PART_LEN:] * c["win_b"]], dim=-1)
 
 
-def time_to_frequency_pair(time_data):
+def time_to_frequency_pair(time_data, exact=None):
     """BufferFarendPartition's two transforms (aec_core.c:1690-1707):
     [B, 128] -> ([B, 130] plain, [B, 130] windowed), re ++ im."""
+    exact = is_exact(exact)
     c = _consts_on(str(time_data.device))
-    re0, im0 = _pack_spectrum(aec_rdft_traced(time_data.to(F32)))
-    re1, im1 = _pack_spectrum(aec_rdft_traced(_windowed(time_data, c)))
+    re0, im0 = _pack_spectrum(aec_rdft_traced(time_data.to(F32),
+                                              exact=exact))
+    re1, im1 = _pack_spectrum(aec_rdft_traced(_windowed(time_data, c),
+                                              exact=exact))
     return torch.cat([re0, im0], dim=-1), torch.cat([re1, im1], dim=-1)
 
 
-def _filter_adaptation(xf_buf, wf_buf, block_pos: int, ef_re, ef_im):
+def _filter_far(xf_buf, wf_buf, block_pos: int, exact: bool):
+    """FilterFar (aec_core.c:148-170): the echo estimate's spectrum, the
+    sum over partitions i of xf[(i + block_pos) mod N] * wf[i].  Exact
+    mode accumulates partition by partition in that order; fast mode is
+    one reduction over the partition axis."""
+    idx = [(i + block_pos) % NUM_PARTITIONS for i in range(NUM_PARTITIONS)]
+    x = xf_buf[:, idx]
+    xr, xi = x[:, :, 0], x[:, :, 1]
+    wr, wi = wf_buf[:, :, 0], wf_buf[:, :, 1]
+    return (seq_sum(xr * wr - xi * wi, 1, exact),
+            seq_sum(xr * wi + xi * wr, 1, exact))
+
+
+def _filter_adaptation(xf_buf, wf_buf, block_pos: int, ef_re, ef_im,
+                       exact: bool):
     """FilterAdaptation (aec_core.c:222-270) for all 12 partitions."""
     idx = [(i + block_pos) % NUM_PARTITIONS for i in range(NUM_PARTITIONS)]
     x = xf_buf[:, idx]                               # [B, 12, 2, 65]
@@ -219,10 +246,10 @@ def _filter_adaptation(xf_buf, wf_buf, block_pos: int, ef_re, ef_im):
         xi[..., PART_LEN] * ei[..., PART_LEN]
     fft = torch.stack([fr, fi], dim=-1).flatten(-2).clone()  # [B, 12, 128]
     fft[..., 1] = f1
-    t = aec_rdft_traced(fft, inverse=True)
+    t = aec_rdft_traced(fft, inverse=True, exact=exact)
     t = torch.cat([t[..., :PART_LEN] * (2.0 / PART_LEN2),
                    torch.zeros_like(t[..., PART_LEN:])], dim=-1)
-    d_re, d_im = _pack_spectrum(aec_rdft_traced(t))
+    d_re, d_im = _pack_spectrum(aec_rdft_traced(t, exact=exact))
     # wfBuf[0] += re for all bins; wfBuf[1] += im for bins 1..63 only
     new0 = wf_buf[:, :, 0] + d_re
     new1 = torch.cat([wf_buf[:, :, 1, :1],
@@ -234,13 +261,17 @@ def _filter_adaptation(xf_buf, wf_buf, block_pos: int, ef_re, ef_im):
 def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
                          block_pos: int, mult: int, nlp_mode: int,
                          noise_sel_init: bool, noise_gate_open: bool,
-                         update_delay_idx: bool):
+                         update_delay_idx: bool, exact=None):
     """One 64-sample ProcessBlock + NonLinearProcessing for B streams.
 
     xf130 / xfw130: [B, 130] far spectra read from far_buf (plain and
     windowed); nearend: [B, 64]; rand64: [64] comfort-noise uniforms (int16
     values), shared by the batch.  Returns (dev, output [B, 64] float,
     saturated)."""
+    exact = is_exact(exact)
+
+    def rdft(a, inverse=False):
+        return aec_rdft_traced(a, inverse, exact)
     device = nearend.device
     c = _consts_on(str(device))
     gp0, gp1 = 0.9, 0.1
@@ -250,7 +281,7 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
 
     # near fft over dBuf
     d_buf = torch.cat([dev.d_buf[:, PART_LEN:], near], dim=1)
-    df_re, df_im = _pack_spectrum(aec_rdft_traced(d_buf))
+    df_re, df_im = _pack_spectrum(rdft(d_buf))
     xf_re, xf_im = xf130[:, :PART_LEN1], xf130[:, PART_LEN1:]
 
     # power smoothing (aec_core.c:1207-1219)
@@ -281,18 +312,13 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
     xf_buf[:, block_pos, 1] = xf_im
 
     # FilterFar + inverse fft -> echo estimate y
-    idx = [(i + block_pos) % NUM_PARTITIONS for i in range(NUM_PARTITIONS)]
-    x = xf_buf[:, idx]
-    xr, xi = x[:, :, 0], x[:, :, 1]
-    wr, wi = dev.wf_buf[:, :, 0], dev.wf_buf[:, :, 1]
-    yf_re = (xr * wr - xi * wi).sum(dim=1)
-    yf_im = (xr * wi + xi * wr).sum(dim=1)
-    t = aec_rdft_traced(_unpack_spectrum(yf_re, yf_im), inverse=True)
+    yf_re, yf_im = _filter_far(xf_buf, dev.wf_buf, block_pos, exact)
+    t = rdft(_unpack_spectrum(yf_re, yf_im), inverse=True)
     e = near - t[:, PART_LEN:] * (2.0 / PART_LEN2)
 
     # error fft
     e_buf = torch.cat([dev.e_buf[:, PART_LEN:], e], dim=1)
-    ef_re, ef_im = _pack_spectrum(aec_rdft_traced(
+    ef_re, ef_im = _pack_spectrum(rdft(
         torch.cat([torch.zeros_like(e), e], dim=1)))
 
     # ScaleErrorSignal (aec_core.c:172-194)
@@ -302,12 +328,13 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
     ef_re = ef_re / denom
     ef_im = ef_im / denom
     abs_ef = fsqrtf(ef_re * ef_re + ef_im * ef_im)
-    fac = err_th / (abs_ef + float(np.float32(1e-10)))
+    fac = cdiv(err_th, abs_ef + float(np.float32(1e-10)))
     big = abs_ef > err_th
     ef_re = torch.where(big, ef_re * fac, ef_re) * mu
     ef_im = torch.where(big, ef_im * fac, ef_im) * mu
 
-    wf_buf = _filter_adaptation(xf_buf, dev.wf_buf, block_pos, ef_re, ef_im)
+    wf_buf = _filter_adaptation(xf_buf, dev.wf_buf, block_pos, ef_re, ef_im,
+                                exact)
 
     # ---------------- NonLinearProcessing (aec_core.c:911-1141) --------
     xfw_buf = dev.xfw_buf.clone()
@@ -318,15 +345,16 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
     # energies (torch.argmax returns the first occurrence)
     delay_idx = dev.delay_idx
     if update_delay_idx:
-        en = (wf_buf * wf_buf).sum(dim=(2, 3))
+        en = seq_sum(wf_buf[:, :, 0] * wf_buf[:, :, 0] +
+                     wf_buf[:, :, 1] * wf_buf[:, :, 1], -1, exact)
         delay_idx = torch.argmax(en, dim=1).to(I32)
     rows = torch.arange(Bn, device=device)
     xfw_d = xfw_buf[rows, delay_idx.long()]          # [B, 2, 65]
     xfw_d_re, xfw_d_im = xfw_d[:, 0], xfw_d[:, 1]
 
     # windowed near/error ffts (SubbandCoherence, aec_core.c:412-450)
-    dfw_re, dfw_im = _pack_spectrum(aec_rdft_traced(_windowed(d_buf, c)))
-    efw_re, efw_im = _pack_spectrum(aec_rdft_traced(_windowed(e_buf, c)))
+    dfw_re, dfw_im = _pack_spectrum(rdft(_windowed(d_buf, c)))
+    efw_re, efw_im = _pack_spectrum(rdft(_windowed(e_buf, c)))
 
     # SmoothedPSD (aec_core.c:333-386)
     sd = g0 * dev.sd + g1 * (dfw_re * dfw_re + dfw_im * dfw_im)
@@ -339,8 +367,7 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
                                         dfw_im * xfw_d_im)
     sxd1 = g0 * dev.sxd[..., 1] + g1 * (dfw_re * xfw_d_im -
                                         dfw_im * xfw_d_re)
-    sd_sum = sd.sum(dim=1)
-    se_sum = se.sum(dim=1)
+    sd_sum, se_sum = seq_sum_multi(sd, se, exact=exact)
 
     diverge = torch.where(dev.diverge_state != 0, 1.05 * se_sum,
                           se_sum) > sd_sum
@@ -358,8 +385,9 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
     pref_band = PREF_BAND_SIZE // mult
     min_pref = 4 // mult
     band = slice(min_pref, min_pref + pref_band)
-    h_xd_avg = 1.0 - cohxd[:, band].sum(dim=1) / float(pref_band)
-    h_de_avg = cohde[:, band].sum(dim=1) / float(pref_band)
+    h_xd_avg = 1.0 - divs(seq_sum(cohxd[:, band], exact=exact),
+                          float(pref_band))
+    h_de_avg = divs(seq_sum(cohde[:, band], exact=exact), float(pref_band))
 
     xd_min_prev = dev.h_nl_xd_avg_min
     h_nl_xd_avg_min = torch.where(
@@ -406,7 +434,8 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
     h_new_min = torch.where(fire, 0, h_new_min).to(I32)
     h_min_ctr = torch.where(fire, 0, h_min_ctr).to(I32)
     od_cand = torch.clamp_min(
-        float(TARGET_SUPP[nlp_mode]) / (flog(h_fb_min + eps) + eps), min_od)
+        cdiv(float(TARGET_SUPP[nlp_mode]), flog(h_fb_min + eps) + eps),
+        min_od)
     over_drive = torch.where(fire, od_cand, over_drive)
     od_sm_prev = dev.over_drive_sm
     over_drive_sm = torch.where(
@@ -436,7 +465,7 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
     efw_im = efw_im + lam2 * cn_im
 
     # inverse error fft + overlap-add (aec_core.c:1066-1088)
-    t_out = aec_rdft_traced(_unpack_spectrum(efw_re, -efw_im), inverse=True)
+    t_out = rdft(_unpack_spectrum(efw_re, -efw_im), inverse=True)
     scale = 2.0 / PART_LEN2
     first = (t_out[:, :PART_LEN] * scale) * c["win_a"] + dev.out_buf
     out_buf = (t_out[:, PART_LEN:] * scale) * c["win_b"]

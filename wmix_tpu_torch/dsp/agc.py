@@ -20,7 +20,8 @@ import torch
 
 from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.intops import (I32, I64, add_sat_w16, div_trunc,
-                                       norm_u32, norm_w32, sat_w16, wrap16)
+                                       downmix, norm_u32, norm_w32, sat_w16,
+                                       wrap16)
 
 # kGenFuncTable: y = log2(1+e^x) in Q8 (digital_agc.c:40-57)
 GEN_FUNC_TABLE = np.array([
@@ -528,16 +529,18 @@ def _table_on(compression_gain_db: int, device: str) -> torch.Tensor:
 
 def process_pkg(st: AgcState, pkg, chn: int, freq: int,
                 compression_gain_db: int):
-    """One daemon package [B, frame_num] (mono): 10 ms subpackages
-    through the digital AGC."""
-    if chn != 1 or freq > 16000:
-        raise NotImplementedError("wmix_tpu_torch AGC: mono 8/16 kHz only")
+    """One daemon package [B, frame_num * chn], interleaved: truncating
+    downmix, subpackages (10 ms up to 16 kHz, 5 ms above) through the mono
+    digital AGC, the result duplicated to every channel."""
     table = _table_on(compression_gain_db, str(pkg.device))
-    pkg_frame = freq // 1000 * 10
-    x = pkg.to(I32)
+    pkg_frame = freq // 1000 * (10 if freq <= 16000 else 5)
+    x = downmix(pkg.to(I32), chn)
     outs = []
     for i in range(x.shape[1] // pkg_frame):
         st, y = process_digital(st, x[:, i * pkg_frame:(i + 1) * pkg_frame],
                                 freq, table)
         outs.append(y)
-    return st, wrap16(torch.cat(outs, dim=1))
+    out = torch.cat(outs, dim=1)
+    if chn > 1:
+        out = out.repeat_interleave(chn, dim=1)
+    return st, wrap16(out)

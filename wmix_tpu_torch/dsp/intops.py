@@ -46,6 +46,16 @@ def div_trunc(num: torch.Tensor, den) -> torch.Tensor:
     return wrap32(torch.div(num.to(I64), den, rounding_mode="trunc"))
 
 
+def downmix(x: torch.Tensor, chn: int) -> torch.Tensor:
+    """The daemon wrappers' mono downmix of an interleaved package
+    [B, frames * chn] -> [B, frames]: the channel sum divided by `chn` as
+    C divides, truncating toward zero (src/webrtc.c:100-110, 780-790)."""
+    if chn == 1:
+        return x
+    s = x.reshape(x.shape[0], -1, chn).sum(dim=2)
+    return torch.div(s, chn, rounding_mode="trunc").to(x.dtype)
+
+
 def div_w32_w16(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """WebRtcSpl_DivW32W16: |num| / (|den| & 0xFFFF) truncated, sign
     restored, 0x7FFFFFFF for den == 0 (the reference's exact form)."""

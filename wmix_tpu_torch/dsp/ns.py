@@ -1,4 +1,4 @@
-"""Noise suppression: the webrtc float NS, fast mode, batched over streams.
+"""Noise suppression: the webrtc float NS, batched over streams.
 
 Port of `wmix_tpu/dsp/ns.py` (ns_core.c): quantile noise estimation, the
 startup white/pink noise model, speech/noise probability from the LRT,
@@ -8,9 +8,18 @@ the gain-map factor.  Every state leaf carries a leading stream axis [B];
 the per-stream selects of the reference (`_tree_select` under vmap) become
 `torch.where` over that axis.
 
-Fast mode: float32 state, the reference's double-precision libm calls in
-float64 (`floatops`), released summation order.  Mono only (the daemon
-feeds stereo right channels as "high bands"; not ported yet).
+Numerics: float32 state, the reference's double-precision libm calls in
+float64 (`floatops`).  Fast mode sums with `torch.sum` and transforms with
+`torch.fft`; exact mode (`exact=True`, or `WMIX_EXACT=1` when the argument
+is None) folds every sum left to right as the C loops do and transforms
+with the Ooura butterflies, and is bit-equal to `wmix_tpu`'s exact mode.
+Every other float op is already one rounding per op in both modes.
+
+Daemon-wrapper quirks (src/webrtc.c:612-644): the extra channels of a
+stereo package go through as "high bands"; at 32 kHz the wrapper's 10 ms
+subpackage is 320 samples but the core processes only blockLen = 160, so
+the second half of every subpackage is silence; outputs are truncated
+toward zero on the int16 store.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ import numpy as np
 import torch
 
 from wmix_tpu_torch.device import resolve_device
-from wmix_tpu_torch.dsp.floatops import fexp, flog, fpow_div, fsqrt_d, ftanh
+from wmix_tpu_torch.dsp.floatops import (cdiv, divs, fexp, flog, fpow_div,
+                                         fsqrt_d, ftanh, is_exact, seq_sum,
+                                         seq_sum_multi)
 from wmix_tpu_torch.ops.rdft import rdft_traced
 
 F32 = torch.float32
@@ -131,7 +142,7 @@ class NsState(NamedTuple):
     analyze_buf: torch.Tensor       # [B, A]
     data_buf: torch.Tensor          # [B, A]
     synt_buf: torch.Tensor          # [B, A]
-    data_buf_hb: torch.Tensor       # [B, 1, A]
+    data_buf_hb: torch.Tensor       # [B, H, A], H = max(high bands, 1)
     noise: torch.Tensor             # [B, M]
     noise_prev: torch.Tensor
     magn_prev_analyze: torch.Tensor
@@ -162,10 +173,12 @@ class NsState(NamedTuple):
     sum_magn: torch.Tensor
 
 
-def init_state(batch: int, fs: int, device=None) -> NsState:
+def init_state(batch: int, fs: int, device=None,
+               num_high_bands: int = 0) -> NsState:
     """WebRtcNs_InitCore (ns_core.c:74-214), policy 2, for B streams."""
     device = resolve_device(device)
     A, M = ana_len(fs), magn_len(fs)
+    H = max(num_high_bands, 1)
 
     def full(shape, v, dt=F32):
         return torch.full((batch,) + tuple(shape), v, dtype=dt,
@@ -180,7 +193,7 @@ def init_state(batch: int, fs: int, device=None) -> NsState:
                       dtype=F32, device=device)
     return NsState(
         analyze_buf=full((A,), 0.0), data_buf=full((A,), 0.0),
-        synt_buf=full((A,), 0.0), data_buf_hb=full((1, A), 0.0),
+        synt_buf=full((A,), 0.0), data_buf_hb=full((H, A), 0.0),
         noise=full((M,), 0.0), noise_prev=full((M,), 0.0),
         magn_prev_analyze=full((M,), 0.0), magn_prev_process=full((M,), 0.0),
         magn_avg_pause=full((M,), 0.0), init_magn_est=full((M,), 0.0),
@@ -218,9 +231,9 @@ def _set_col(mat: torch.Tensor, k: int, val: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _fft(win: torch.Tensor):
+def _fft(win: torch.Tensor, exact: bool):
     """FFT helper (ns_core.c:886-911): rdft + magnitude with +1 floor."""
-    a = rdft_traced(win)
+    a = rdft_traced(win, exact=exact)
     n = win.shape[-1]
     M = n // 2 + 1
     zero = torch.zeros_like(a[:, :1])
@@ -233,12 +246,13 @@ def _fft(win: torch.Tensor):
     return real, imag, magn
 
 
-def _ifft(real, imag, n: int):
+def _ifft(real, imag, n: int, exact: bool):
     """IFFT helper (ns_core.c:923-944) including the 2/n scaling."""
     pairs = torch.stack([real[:, 1:-1], imag[:, 1:-1]], dim=-1).reshape(
         real.shape[0], -1)
     a = torch.cat([real[:, 0:1], real[:, -1:], pairs], dim=1)
-    return rdft_traced(a, inverse=True) * _c(f32(2.0) / f32(n))
+    return rdft_traced(a, inverse=True, exact=exact) * \
+        _c(f32(2.0) / f32(n))
 
 
 # ------------------------------------------------ noise estimation (:217-285)
@@ -256,7 +270,7 @@ def _noise_estimation(st: NsState, magn):
         dens_s = st.density[:, s]
         ctr_s = st.counter[:, s:s + 1]
         cnt1 = (ctr_s + 1).to(F32)
-        delta = torch.where(dens_s > 1.0, _c(FACTOR) / dens_s,
+        delta = torch.where(dens_s > 1.0, cdiv(_c(FACTOR), dens_s),
                             torch.full_like(dens_s, _c(FACTOR)))
         up = lq_s + (_c(QUANTILE) * delta) / cnt1
         dn = lq_s - (_c(f32(1.0) - QUANTILE) * delta) / cnt1
@@ -283,7 +297,7 @@ def _noise_estimation(st: NsState, magn):
 
 def _hist_bin(value, bin_size):
     ok = (value < float(HIST_PAR_EST * bin_size)) & (value >= 0.0)
-    idx = (value / _c(bin_size)).to(I32)
+    idx = divs(value, _c(bin_size)).to(I32)
     return ok, idx.clamp(0, HIST_PAR_EST - 1)
 
 
@@ -310,7 +324,7 @@ def _mids(bin_size, device):
     return torch.from_numpy(_bin_mids(bin_size.tobytes())).to(device)
 
 
-def _feature_parameter_extraction(st: NsState):
+def _feature_parameter_extraction(st: NsState, exact: bool):
     """flag == 1 path (ns_core.c:337-517); computed every frame and
     selected by the caller on window boundaries."""
     dev = st.hist_lrt.device
@@ -321,14 +335,14 @@ def _feature_parameter_extraction(st: NsState):
 
     in_range = mids_lrt <= _c(RANGE_AVG_HIST_LRT)
     compl_terms = hist_lrt_f * mids_lrt
-    avg_hist = torch.where(in_range, compl_terms, 0.0).sum(dim=1)
-    avg_sq = (compl_terms * mids_lrt).sum(dim=1)
-    avg_compl = compl_terms.sum(dim=1)
+    avg_hist, avg_sq, avg_compl = seq_sum_multi(
+        torch.where(in_range, compl_terms, 0.0), compl_terms * mids_lrt,
+        compl_terms, exact=exact)
     num_hist = torch.where(in_range, st.hist_lrt, 0).sum(dim=1)
     avg_hist = torch.where(num_hist > 0, avg_hist / num_hist.to(F32),
                            avg_hist)
-    avg_compl = avg_compl / float(MODEL_UPDATE_WINDOW)
-    avg_sq = avg_sq / float(MODEL_UPDATE_WINDOW)
+    avg_compl = divs(avg_compl, float(MODEL_UPDATE_WINDOW))
+    avg_sq = divs(avg_sq, float(MODEL_UPDATE_WINDOW))
     fluct_lrt = avg_sq - avg_hist * avg_compl
 
     low_fluct = fluct_lrt < _c(THRES_FLUCT_LRT)
@@ -362,7 +376,7 @@ def _feature_parameter_extraction(st: NsState):
     pm[:, 0] = thr_lrt
     pm[:, 1] = thr_flat
     pm[:, 3] = thr_diff
-    pm[:, 4] = 1.0 / feature_sum
+    pm[:, 4] = cdiv(1.0, feature_sum)
     pm[:, 5] = use_flat.to(F32) / feature_sum
     pm[:, 6] = use_diff.to(F32) / feature_sum
     return st._replace(
@@ -372,24 +386,24 @@ def _feature_parameter_extraction(st: NsState):
         hist_spec_diff=torch.zeros_like(st.hist_spec_diff))
 
 
-def _feature_update(st: NsState, magn, M: int):
+def _feature_update(st: NsState, magn, M: int, exact: bool):
     """FeatureUpdate (ns_core.c:755-791) with its two callees."""
     mf = float(M)
     # ComputeSpectralFlatness (:523-556); magn >= 1, so no log(0) return
-    den = (st.sum_magn - magn[:, 0]) / mf
-    num = flog(magn[:, 1:]).sum(dim=1) / mf
+    den = divs(st.sum_magn - magn[:, 0], mf)
+    num = divs(seq_sum(flog(magn[:, 1:]), exact=exact), mf)
     spectral_tmp = fexp(num) / den
     fd = st.feature_data.clone()
     fd[:, 0] = fd[:, 0] + _c(SPECT_FL_TAVG) * (spectral_tmp - fd[:, 0])
 
     # ComputeSpectralDifference (:595-634)
-    avg_pause = st.magn_avg_pause.sum(dim=1) / mf
-    avg_magn = st.sum_magn / mf
+    avg_pause = divs(seq_sum(st.magn_avg_pause, exact=exact), mf)
+    avg_magn = divs(st.sum_magn, mf)
     dm = magn - avg_magn[:, None]
     dp = st.magn_avg_pause - avg_pause[:, None]
-    cov = (dm * dp).sum(dim=1) / mf
-    var_pause = (dp * dp).sum(dim=1) / mf
-    var_magn = (dm * dm).sum(dim=1) / mf
+    cov, var_pause, var_magn = (
+        divs(s, mf) for s in seq_sum_multi(dm * dp, dp * dp, dm * dm,
+                                           exact=exact))
     fd[:, 6] = fd[:, 6] + st.signal_energy
     avg_diff = var_magn - (cov * cov) / (var_pause + _c(1e-4))
     avg_diff = avg_diff / (fd[:, 5] + _c(1e-4))
@@ -410,9 +424,14 @@ def _feature_update(st: NsState, magn, M: int):
                                  ok_d & update_hist),
         update_countdown=countdown)
 
-    extracted = _feature_parameter_extraction(st_hist)
+    # the extraction folds three 1000-bin histograms; exact mode, where
+    # that is 1000 sequential adds, computes it only when a stream's
+    # window ends (one host read of the countdowns)
+    if exact and not bool((countdown == 0).any()):
+        return st_hist
+    extracted = _feature_parameter_extraction(st_hist, exact)
     fd2 = extracted.feature_data.clone()
-    fd2[:, 6] = fd2[:, 6] / float(MODEL_UPDATE_WINDOW)
+    fd2[:, 6] = divs(fd2[:, 6], float(MODEL_UPDATE_WINDOW))
     fd2[:, 5] = 0.5 * (fd2[:, 6] + fd2[:, 5])
     fd2[:, 6] = 0.0
     extracted = extracted._replace(
@@ -423,13 +442,14 @@ def _feature_update(st: NsState, magn, M: int):
 
 # ---------------------------------------------- speech probability (:642-749)
 
-def _speech_noise_prob(st: NsState, snr_prior, snr_post, M: int):
+def _speech_noise_prob(st: NsState, snr_prior, snr_post, M: int,
+                       exact: bool):
     t1 = 1.0 + 2.0 * snr_prior
     t2 = (2.0 * snr_prior) / (t1 + _c(1e-4))
     bessel = (snr_post + 1.0) * t2
     lrt = st.log_lrt_time_avg
     lrt = lrt + _c(LRT_TAVG) * ((bessel - flog(t1)) - lrt)
-    ksum = lrt.sum(dim=1) / float(M)
+    ksum = divs(seq_sum(lrt, exact=exact), float(M))
     fd = _set_col(st.feature_data, 3, ksum)
 
     pm = st.prior_model
@@ -452,7 +472,7 @@ def _speech_noise_prob(st: NsState, snr_prior, snr_post, M: int):
     prior = prior.clamp(max=1.0).clamp(min=_c(0.01))
     gain_prior = (1.0 - prior) / (prior + _c(1e-4))
     inv_lrt = gain_prior[:, None] * fexp(-lrt)
-    prob = 1.0 / (1.0 + inv_lrt)
+    prob = cdiv(1.0, 1.0 + inv_lrt)
     return st._replace(log_lrt_time_avg=lrt, feature_data=fd,
                        prior_speech_prob=prior, speech_prob=prob)
 
@@ -485,24 +505,27 @@ def _win(A: int, device) -> torch.Tensor:
     return torch.from_numpy(_window(A)).to(device)
 
 
-def analyze(st: NsState, frame, fs: int) -> NsState:
+def analyze(st: NsState, frame, fs: int, exact=None) -> NsState:
+    """AnalyzeCore on one block [B, block] (the left channel)."""
+    exact = is_exact(exact)
     B, A, M = block_len(fs), ana_len(fs), magn_len(fs)
     buf = torch.cat([st.analyze_buf[:, B:], frame.to(F32)], dim=1)
     st = st._replace(analyze_buf=buf)
     win = _win(A, buf.device) * buf
-    energy = (win * win).sum(dim=1)
-    new = _analyze_active(st, win, M)
+    energy = seq_sum(win * win, exact=exact)
+    new = _analyze_active(st, win, M, exact)
     return select(energy != 0.0, new, st)
 
 
-def _analyze_active(st: NsState, win, M: int):
+def _analyze_active(st: NsState, win, M: int, exact: bool):
     block_ind = st.block_ind + 1
-    real, imag, magn = _fft(win)
+    real, imag, magn = _fft(win, exact)
     dev = magn.device
 
-    signal_energy = (real[:, :M] * real[:, :M] +
-                     imag[:, :M] * imag[:, :M]).sum(dim=1) / float(M)
-    sum_magn = magn.sum(dim=1)
+    signal_energy, sum_magn = seq_sum_multi(
+        real[:, :M] * real[:, :M] + imag[:, :M] * imag[:, :M], magn,
+        exact=exact)
+    signal_energy = divs(signal_energy, float(M))
     st = st._replace(signal_energy=signal_energy, sum_magn=sum_magn,
                      block_ind=block_ind)
 
@@ -510,23 +533,24 @@ def _analyze_active(st: NsState, win, M: int):
     logs_i, sum_log_i, sum_log_i_sq = _startup_log_consts(M)
     lm = flog(magn)
     band = torch.arange(M, device=dev) >= K_START_BAND
-    sum_log_magn = torch.where(band, lm, 0.0).sum(dim=1)
-    sum_log_il = torch.where(band, torch.from_numpy(logs_i).to(dev) * lm,
-                             0.0).sum(dim=1)
+    sum_log_magn = seq_sum(torch.where(band, lm, 0.0), exact=exact)
+    sum_log_il = seq_sum(
+        torch.where(band, torch.from_numpy(logs_i).to(dev) * lm, 0.0),
+        exact=exact)
 
     st, noise = _noise_estimation(st, magn)
 
     in_short = block_ind < END_STARTUP_SHORT
-    wn = st.white_noise_level + (sum_magn / float(M)) * _c(OVERDRIVE)
+    wn = st.white_noise_level + divs(sum_magn, float(M)) * _c(OVERDRIVE)
     # pink noise regression (ns_core.c:1113-1133); t1 is a compile-time
     # constant in C too
     t1 = _c(f32(f32(sum_log_i_sq * f32(M - K_START_BAND)) -
                 f32(sum_log_i) * f32(sum_log_i)))
     t2 = _c(sum_log_i_sq) * sum_log_magn - _c(sum_log_i) * sum_log_il
-    t3 = (t2 / t1).clamp_min(0.0)
+    t3 = divs(t2, t1).clamp_min(0.0)
     pnum = st.pink_noise_numerator + t3
     t2b = _c(sum_log_i) * sum_log_magn - float(M - K_START_BAND) * sum_log_il
-    t3b = (t2b / t1).clamp(0.0, 1.0)
+    t3b = divs(t2b, t1).clamp(0.0, 1.0)
     pexp = st.pink_noise_exp + t3b
 
     bi1 = (block_ind + 1).to(F32)
@@ -539,7 +563,7 @@ def _analyze_active(st: NsState, win, M: int):
     noise_s = noise * block_ind.to(F32)[:, None]
     tmp2 = pnoise * (END_STARTUP_SHORT - block_ind).to(F32)[:, None]
     noise_s = noise_s + tmp2 / bi1[:, None]
-    noise_s = noise_s / float(END_STARTUP_SHORT)
+    noise_s = divs(noise_s, float(END_STARTUP_SHORT))
 
     noise = torch.where(in_short[:, None], noise_s, noise)
     st = st._replace(
@@ -565,38 +589,51 @@ def _analyze_active(st: NsState, win, M: int):
     snr_prior = _c(DD_PR_SNR) * prev_stsa + \
         _c(f32(1.0) - DD_PR_SNR) * snr_post
 
-    st = _feature_update(st, magn, M)
-    st = _speech_noise_prob(st, snr_prior, snr_post, M)
+    st = _feature_update(st, magn, M, exact)
+    st = _speech_noise_prob(st, snr_prior, snr_post, M, exact)
     st, noise = _update_noise_estimate(st, magn, noise)
     return st._replace(noise=noise, magn_prev_analyze=magn)
 
 
 # ------------------------------------------------ ProcessCore (:1183-1415)
 
-def process(st: NsState, frame, fs: int):
-    """frame: [B, block] float32, the low band (mono).  Returns (state,
-    out [B, block])."""
+def process(st: NsState, frames, fs: int, exact=None):
+    """frames: [B, num_bands, block] float32 (band 0 is the low band; the
+    rest are the daemon's extra channels).  Returns (state, out
+    [B, num_bands, block])."""
+    exact = is_exact(exact)
     B, A, M = block_len(fs), ana_len(fs), magn_len(fs)
-    data_buf = torch.cat([st.data_buf[:, B:], frame.to(F32)], dim=1)
-    st = st._replace(data_buf=data_buf)
+    frames = frames.to(F32)
+    num_bands = frames.shape[1]
+    data_buf = torch.cat([st.data_buf[:, B:], frames[:, 0]], dim=1)
+    hb = st.data_buf_hb
+    if num_bands > 1:
+        hb = torch.cat([
+            torch.cat([hb[:, :num_bands - 1, B:], frames[:, 1:]], dim=2),
+            hb[:, num_bands - 1:]], dim=1)
+    st = st._replace(data_buf=data_buf, data_buf_hb=hb)
     window = _win(A, data_buf.device)
     win = window * data_buf
-    energy1 = (win * win).sum(dim=1)
+    energy1 = seq_sum(win * win, exact=exact)
     active = energy1 != 0.0
 
     # zero-input path (:1239-1264)
-    out_zero = st.synt_buf[:, :B].clamp(-32768.0, 32767.0)
+    out_zero = torch.cat([st.synt_buf[:, None, :B],
+                          hb[:, :num_bands - 1, :B]],
+                         dim=1).clamp(-32768.0, 32767.0)
     synt_z = torch.cat([st.synt_buf[:, B:],
                         torch.zeros_like(st.synt_buf[:, :B])], dim=1)
     st_zero = st._replace(synt_buf=synt_z)
 
-    st_act, out_act = _process_active(st, win, window, energy1, B, A)
+    st_act, out_act = _process_active(st, win, window, energy1, B, A, M,
+                                      num_bands, exact)
     return (select(active, st_act, st_zero),
-            torch.where(active[:, None], out_act, out_zero))
+            torch.where(active[:, None, None], out_act, out_zero))
 
 
-def _process_active(st: NsState, win, window, energy1, B: int, A: int):
-    real, imag, magn = _fft(win)
+def _process_active(st: NsState, win, window, energy1, B: int, A: int,
+                    M: int, num_bands: int, exact: bool):
+    real, imag, magn = _fft(win, exact)
     one_m_dd = _c(f32(1.0) - DD_PR_SNR)
     bound = _c(DENOISE_BOUND)
 
@@ -618,20 +655,20 @@ def _process_active(st: NsState, win, window, energy1, B: int, A: int):
                 (init_est + _c(1e-4))).clamp(bound, 1.0)
     bi = st.block_ind.to(F32)[:, None]
     rest = (END_STARTUP_SHORT - st.block_ind).to(F32)[:, None]
-    blended = (filt * bi + filt_tmp * rest) / float(END_STARTUP_SHORT)
+    blended = divs(filt * bi + filt_tmp * rest, float(END_STARTUP_SHORT))
     filt = torch.where(in_short, blended, filt)
 
     st = st._replace(smooth=filt, magn_prev_process=magn,
                      noise_prev=st.noise)
-    win_data = _ifft(real * filt, imag * filt, A)
+    win_data = _ifft(real * filt, imag * filt, A, exact)
 
     # gain-map factor (:1314-1342)
-    energy2 = (win_data * win_data).sum(dim=1)
+    energy2 = seq_sum(win_data * win_data, exact=exact)
     gain = fsqrt_d(energy2 / (energy1 + 1.0))
     f1v = 1.0 + _c(1.3) * (gain - _c(B_LIM))
     factor1 = torch.where(
         gain > _c(B_LIM),
-        torch.where(gain * f1v > 1.0, 1.0 / gain, f1v), 1.0)
+        torch.where(gain * f1v > 1.0, cdiv(1.0, gain), f1v), 1.0)
     g2 = torch.where(gain <= bound, bound, gain)
     factor2 = torch.where(gain < _c(B_LIM),
                           1.0 - _c(0.3) * (_c(B_LIM) - g2), 1.0)
@@ -644,23 +681,52 @@ def _process_active(st: NsState, win, window, energy1, B: int, A: int):
     synt_new = torch.cat([synt[:, B:], torch.zeros_like(synt[:, :B])],
                          dim=1)
     st = st._replace(synt_buf=synt_new)
-    return st, fout.clamp(-32768.0, 32767.0)
+    outs = [fout]
+    if num_bands > 1:
+        # high-band gain (:1376-1413) from the upper quarter of the low
+        # band's speech probability and filter
+        delta = M // 4
+        upper = slice(M - delta - 1, M - 1)
+        avg_prob = divs(seq_sum(st.speech_prob[:, upper], exact=exact),
+                        float(delta))
+        sum_ana, sum_proc = seq_sum_multi(st.magn_prev_analyze,
+                                          st.magn_prev_process, exact=exact)
+        avg_prob = avg_prob * (sum_proc / sum_ana)
+        avg_gain = divs(seq_sum(st.smooth[:, upper], exact=exact),
+                        float(delta))
+        gain_mod = 0.5 * (1.0 + ftanh(2.0 * avg_prob - 1.0))
+        g = torch.where(avg_prob >= 0.5,
+                        0.25 * gain_mod + 0.75 * avg_gain,
+                        0.5 * gain_mod + 0.5 * avg_gain)
+        g = g.clamp(bound, 1.0)         # decayBweHB == 1.0
+        for i in range(num_bands - 1):
+            outs.append(g[:, None] * st.data_buf_hb[:, i, :B])
+    return st, torch.stack(outs, dim=1).clamp(-32768.0, 32767.0)
 
 
 # --------------------------- daemon wrapper (src/webrtc.c ns_process:612-644)
 
-def process_pkg(st: NsState, pkg, chn: int, freq: int):
-    """One daemon package [B, frame_num] of int16-valued ints (mono):
-    Analyze + Process per 10 ms subpackage; (int16_t) cast truncates."""
-    if chn != 1 or freq == 32000:
-        raise NotImplementedError("wmix_tpu_torch NS: mono 8/16 kHz only")
+def process_pkg(st: NsState, pkg, chn: int, freq: int, exact=None):
+    """One daemon package [B, frame_num * chn] of interleaved int16-valued
+    ints: per 10 ms subpackage, Analyze on the left channel and Process
+    with the channels as bands; the (int16_t) cast truncates.
+
+    At 32 kHz the wrapper's subpackage is 320 samples but the core's block
+    is 160, so only the first half of each subpackage is processed and the
+    rest of the output stays zero (src/webrtc.c:577 against ns_core.c:94)."""
+    exact = is_exact(exact)
     B = block_len(freq)
-    n_sub = pkg.shape[1] // B
-    x = pkg.to(F32)
+    pkg_frame = freq // 1000 * 10
+    Bn = pkg.shape[0]
+    frame_num = pkg.shape[1] // chn
+    x = pkg.reshape(Bn, frame_num, chn).to(F32)
     outs = []
-    for i in range(n_sub):
-        seg = x[:, i * B:(i + 1) * B]
-        st = analyze(st, seg, freq)
-        st, out = process(st, seg, freq)
-        outs.append(out)
-    return st, torch.cat(outs, dim=1).to(I32)
+    for i in range(frame_num // pkg_frame):
+        bands = x[:, i * pkg_frame:i * pkg_frame + B].transpose(1, 2)
+        st = analyze(st, bands[:, 0], freq, exact)
+        st, out_bands = process(st, bands, freq, exact)
+        outs.append(out_bands.transpose(1, 2))
+        if pkg_frame != B:
+            outs.append(torch.zeros((Bn, pkg_frame - B, chn), dtype=F32,
+                                    device=pkg.device))
+    return st, torch.cat(outs, dim=1).reshape(Bn, -1).to(I32)

@@ -4,7 +4,7 @@ Port of `wmix_tpu/dsp/vad.py`: the 6-band split filterbank with
 log-energy features (vad_filterbank.c), the Gaussian pair per band with
 the fixed-point probability (vad_gmm.c), minimum tracking and median
 smoothing (vad_sp.c), the GMM hypothesis test with model adaptation and
-hangover (vad_core.c), the 16 -> 8 kHz downsampling, and the daemon
+hangover (vad_core.c), the 32 -> 16 -> 8 kHz downsampling, and the daemon
 wrapper's progressive `reduce` mute (src/webrtc.c vad_process:91-151).
 Aggressiveness mode 3.  int32 arithmetic with C wrap semantics; every
 state leaf carries a leading stream axis.  The filter recursions are
@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from wmix_tpu_torch.device import resolve_device
-from wmix_tpu_torch.dsp.intops import (I32, div_w32_w16, norm_u32, norm_w32,
-                                       u32, wrap16)
+from wmix_tpu_torch.dsp.intops import (I32, div_w32_w16, downmix, norm_u32,
+                                       norm_w32, u32, wrap16)
 
 N_CH = 6
 N_G = 2
@@ -456,30 +456,39 @@ def _downsample_by2(frame, st):
 # ------------------------------------------------ top level
 
 def calc_vad(state: VadState, frame, fs: int):
-    """WebRtcVad_CalcVad{8,16}khz (vad_core.c:598-674), frame [B, n].
+    """WebRtcVad_CalcVad{8,16,32}khz (vad_core.c:598-674), frame [B, n].
     Returns (state, decision 0/1 [B])."""
-    if fs == 16000:
+    if fs == 32000:
+        wb, ds_hi = _downsample_by2(frame, state.ds_state[:, 2:])
+        nb, ds_lo = _downsample_by2(wb, state.ds_state[:, :2])
+        state = state._replace(ds_state=torch.cat([ds_lo, ds_hi], dim=1))
+    elif fs == 16000:
         nb, ds_lo = _downsample_by2(frame, state.ds_state[:, :2])
         state = state._replace(
             ds_state=torch.cat([ds_lo, state.ds_state[:, 2:]], dim=1))
     elif fs == 8000:
         nb = frame
     else:
-        raise NotImplementedError("wmix_tpu_torch VAD: 8 or 16 kHz only")
+        raise ValueError("fs must be 8000, 16000 or 32000")
     features, total_power, state = _calculate_features(state, nb)
     state, flag = _gmm_probability(state, features, total_power,
                                    nb.shape[1])
     return state, (flag > 0).to(I32)
 
 
-def process(state: VadState, pkg, chn: int, freq: int):
-    """The daemon wrapper vad_process (src/webrtc.c:91-151) for one mono
-    package [B, frame_num] of 20 ms: per-subpackage VAD + progressive
-    reduce, with the first-subpackage-only mute quirk."""
-    if chn != 1:
-        raise NotImplementedError("wmix_tpu_torch VAD: mono only")
-    pkg_frame = freq // 1000 * 20
-    out = pkg.to(I32)
+def process(state: VadState, pkg, chn: int, freq: int,
+            interval_ms: int = 20):
+    """The daemon wrapper vad_process (src/webrtc.c:91-151) for one
+    package [B, frame_num * chn], interleaved: truncating downmix,
+    per-subpackage VAD + progressive reduce, the first-subpackage-only mute
+    quirk, and the result duplicated to every channel."""
+    # wrapper subpackage length (src/webrtc.c:56-65)
+    if freq <= 16000:
+        sub_ms = 20 if interval_ms % 20 == 0 else 10
+    else:
+        sub_ms = 10
+    pkg_frame = freq // 1000 * sub_ms
+    out = downmix(pkg.to(I32), chn)
     for i in range(out.shape[1] // pkg_frame):
         # the C loop never advances pFrame (src/webrtc.c:120): every
         # subpackage re-processes the FIRST pkgFrame samples
@@ -492,4 +501,6 @@ def process(state: VadState, pkg, chn: int, freq: int):
         if i == 0:
             out = torch.cat([seg >> red[:, None], out[:, pkg_frame:]],
                             dim=1)
+    if chn > 1:
+        out = out.repeat_interleave(chn, dim=1)
     return state, wrap16(out)

@@ -690,7 +690,7 @@ def build_far_body(signature, sub_len: int):
             ei = aec_step.buffer_farend_(
                 far_pre, far_parts, farw_parts,
                 far_pkg[:, si * sub_len:(si + 1) * sub_len], dyn, si, ei,
-                n_extr)
+                n_extr, exact=False)      # the kernel path is fast mode
         return far_pre, far_parts, farw_parts
     return fn
 

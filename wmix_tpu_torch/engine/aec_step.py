@@ -29,6 +29,7 @@ from wmix_tpu_torch.dsp.aec import (
     process_block_kernel,
     time_to_frequency_pair,
 )
+from wmix_tpu_torch.dsp.floatops import is_exact
 from wmix_tpu_torch.dsp.intops import wrap16
 from wmix_tpu_torch.engine.aec_plan import (
     FAR_PRE_BUF_SIZE,
@@ -80,14 +81,14 @@ def ring_write_(buf, start: int, data) -> None:
 
 
 def buffer_farend_(far_pre, far_parts, farw_parts, farsub, dyn, si: int,
-                   ei: int, n_extr: int) -> int:
+                   ei: int, n_extr: int, exact=None) -> int:
     """BufferFarend of one subpackage, in place: the far_pre ring write and
     the partition extractions into the far spectrum stores.  Returns the
     next extraction index."""
     ring_write_(far_pre, dyn["pre_writes"][si], farsub)
     for _ in range(n_extr):
         seg = ring_read(far_pre, dyn["extr_pre"][ei], PART_LEN2)
-        xf, xfw = time_to_frequency_pair(seg)
+        xf, xfw = time_to_frequency_pair(seg, exact)
         slot = int(dyn["extr_slots"][ei])
         far_parts[:, slot] = xf
         farw_parts[:, slot] = xfw
@@ -95,10 +96,13 @@ def buffer_farend_(far_pre, far_parts, farw_parts, farsub, dyn, si: int,
     return ei
 
 
-def build_pkg_body(signature, sub_len: int, mult: int, nlp_mode: int):
+def build_pkg_body(signature, sub_len: int, mult: int, nlp_mode: int,
+                   exact=None):
     """Returns fn(state, far_pkg [B, n] f32, near_pkg [B, n] f32, dyn) ->
-    (state, out [B, n]) replaying one package plan of this signature.
+    (state, out [B, n]) replaying one package plan of this signature in
+    the arithmetic mode `exact` (None: the environment's, read now).
     update_delay_idx comes from dyn (the reference's traced_upd form)."""
+    exact = is_exact(exact)
 
     def fn(st: AecEngState, far_pkg, near_pkg, dyn):
         ei = fi = bi = 0
@@ -108,7 +112,7 @@ def build_pkg_body(signature, sub_len: int, mult: int, nlp_mode: int):
             farsub = far_pkg[:, si * sub_len:(si + 1) * sub_len]
             nearsub = near_pkg[:, si * sub_len:(si + 1) * sub_len]
             ei = buffer_farend_(st.far_pre, st.far_parts, st.farw_parts,
-                                farsub, dyn, si, ei, n_extr)
+                                farsub, dyn, si, ei, n_extr, exact)
             if startup:
                 outs.append(nearsub)
                 continue
@@ -124,7 +128,7 @@ def build_pkg_body(signature, sub_len: int, mult: int, nlp_mode: int):
                         ring_read(st.near_fr, dyn["blk_near"][bi], PART_LEN),
                         dyn["blk_rand"][bi], int(dyn["blk_xf"][bi]),
                         mult, nlp_mode, bool(flags[0]), bool(flags[1]),
-                        bool(flags[2]))
+                        bool(flags[2]), exact)
                     ring_write_(st.out_fr, dyn["blk_out"][bi], out64)
                     bi += 1
                 sub_out.append(ring_read(st.out_fr, dyn["frame_out"][fi],
@@ -178,16 +182,21 @@ def pack_dyn(plan: PkgPlan, part_cap: int):
 
 
 class AecBatch:
-    """Batched AEC over B stream slots: planner + device state (mono)."""
+    """Batched AEC over B stream slots: planner + device state (mono; the
+    daemon takes the left channel before the AEC and duplicates after,
+    which is the caller's part).  8 or 16 kHz; the mode is read when the
+    object is built."""
 
     def __init__(self, batch: int, freq: int,
-                 part_cap: int = DEFAULT_PART_CAP, device=None):
-        if freq != 16000:
-            raise NotImplementedError("wmix_tpu_torch AEC: 16 kHz only")
+                 part_cap: int = DEFAULT_PART_CAP, device=None, exact=None):
+        if freq > 16000 or freq % 8000:
+            raise ValueError("the AEC runs at 8 or 16 kHz")
         self.batch = batch
         self.freq = freq
         self.part_cap = part_cap
-        self.sub_len = freq // 1000 * 10
+        self.exact = is_exact(exact)
+        self.sub_len = freq // 1000 * (20 if freq <= 8000 else 10)
+        self.pkg_len = freq // 1000 * 20
         self.planner = AecPlanner(freq)
         self.state = init_eng_state(batch, part_cap, device)
 
@@ -201,12 +210,13 @@ class AecBatch:
                                "capacity; raise part_cap")
 
     def step(self, far_pkg, near_pkg):
-        """One 20 ms package for the whole batch: [B, 320] float32
-        (int16-valued) in, [B, 320] float32 AEC output out."""
+        """One 20 ms package for the whole batch: [B, pkg_len] float32
+        (int16-valued) in, [B, pkg_len] float32 AEC output out."""
         plan = self.planner.plan_pkg()
         self._check()
         fn = build_pkg_body(plan.signature(), self.sub_len,
-                            self.planner.mult, self.planner.nlp_mode)
+                            self.planner.mult, self.planner.nlp_mode,
+                            self.exact)
         self.state, out = fn(self.state, far_pkg.to(F32), near_pkg.to(F32),
                              pack_dyn(plan, self.part_cap))
         return out

@@ -19,10 +19,19 @@ host plans each package; until the plan is steady the AEC runs in the
 exact ring layout (`aec_step`); at the first steady package its state
 converts once to the kernel layout, and from then on every package is one
 `aec_package.package_step` (the CUDA kernel on a GPU, its plain version on
-the CPU).
+the CPU).  The kernel serves what the reference's package kernel serves:
+steady 16 kHz plans of 20 ms packages in fast mode, mono or stereo (the
+AEC sees the left channel).  At 8 kHz and in exact mode the AEC stays in
+the ring layout.
 
-Geometry: 16 kHz mono, 20 ms packages, fast mode.  Other geometries and exact
-mode raise; the AECM/NSX backends are not ported.
+Geometries, as the reference's: 8, 16 or 32 kHz (the AEC only up to
+16 kHz), one or two interleaved channels, `interval_ms` packages and an
+`aec_interval_ms` echo-path delay.  The planner plans 20 ms of AEC per
+tick whatever `interval_ms` is, so a chain of another package length runs
+with the AEC off only (the reference takes it with the AEC on and returns
+packages of twice the length; the port raises).  The
+arithmetic mode (`floatops`) is read when the chain is built and kept on
+it.  The AECM/NSX backends are not ported.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ from wmix_tpu_torch.dsp import agc as agc_mod
 from wmix_tpu_torch.dsp import ns as ns_mod
 from wmix_tpu_torch.dsp import vad as vad_mod
 from wmix_tpu_torch.dsp.aec import AecDev
-from wmix_tpu_torch.dsp.floatops import check_fast_mode
+from wmix_tpu_torch.dsp.floatops import fast_mode
 from wmix_tpu_torch.engine import aec_package, aec_step
 from wmix_tpu_torch.engine.aec_plan import AecPlanner
 from wmix_tpu_torch.ops import stepper
@@ -44,8 +53,10 @@ from wmix_tpu_torch.ops import stepper
 F32 = torch.float32
 I32 = torch.int32
 
-INTERVAL_MS = 20          # package length
 AEC_INTERVALMS = 400      # platform/alsa/plat.h:19; FIFO of 400/20+2 = 22
+
+_NOT_PORTED = ("the integer NSX+AECM chain is not ported to wmix_tpu_torch "
+               "yet (ROADMAP section 1, item 9)")
 
 
 class ChainState(NamedTuple):
@@ -53,36 +64,64 @@ class ChainState(NamedTuple):
     aec: object               # AecEngState, or PackageAecState once steady
     agc: agc_mod.AgcState
     vad: vad_mod.VadState
-    play_fifo: torch.Tensor   # [B, 22, pkg_len] f32 (int16-valued)
+    play_fifo: torch.Tensor   # [B, 22, pkg_len * chn] f32 (int16-valued)
 
 
 class RecordChain:
-    """B concurrent streams of the daemon record chain (16 kHz mono).
+    """B concurrent streams of the daemon record chain.
 
-    Enable flags mirror wmix->webrtcEnable[]; the AGC gain mirrors
-    wmix->volumeAgc (default 5, src/wmix.c:1596).  `device` defaults to
-    the card (None means "cuda"); without a CUDA device that raises, and
-    the CPU is used only when asked for."""
+    The parameters are the reference's, in its order.  Enable flags mirror
+    wmix->webrtcEnable[]; the AGC gain mirrors wmix->volumeAgc (default 5,
+    src/wmix.c:1596); `aec_interval_ms` is the platform's echo-path delay
+    (alsa 400 ms).  `device` defaults to the card (None means "cuda");
+    without a CUDA device that raises, and the CPU is used only when asked
+    for."""
 
-    def __init__(self, batch: int, freq: int, ns_enable: bool = True,
-                 aec_enable: bool = True, agc_enable: bool = True,
-                 vad_enable: bool = True, agc_gain_db: int = 5, chn: int = 1,
-                 device=None):
-        check_fast_mode()
-        if freq != 16000 or chn != 1:
-            raise NotImplementedError(
-                "wmix_tpu_torch RecordChain: 16 kHz mono only")
+    def __init__(self, batch: int, freq: int, interval_ms: int = 20,
+                 ns_enable: bool = True, aec_enable: bool = True,
+                 agc_enable: bool = True, vad_enable: bool = True,
+                 agc_gain_db: int = 5,
+                 part_cap: int = aec_step.DEFAULT_PART_CAP,
+                 aec_backend: str = "aec", chn: int = 1,
+                 ns_backend: str = "ns",
+                 aec_interval_ms: int = AEC_INTERVALMS, device=None):
+        # the daemon's module rate guards (src/wmix.c:615-699): AEC only
+        # to 16 kHz; NS/AGC/VAD to 32 kHz
+        if freq > 16000:
+            aec_enable = False
+        if freq % 8000 or not 0 < freq <= 32000:
+            raise ValueError("freq must be 8000, 16000, 24000 or 32000")
+        if chn not in (1, 2):
+            raise ValueError("chn must be 1 or 2")
+        if aec_backend not in ("aec", "aecm") or \
+                ns_backend not in ("ns", "nsx"):
+            raise ValueError("aec_backend is 'aec' or 'aecm', ns_backend "
+                             "'ns' or 'nsx'")
+        if (aec_backend == "aecm" and aec_enable) or \
+                (ns_backend == "nsx" and ns_enable):
+            raise NotImplementedError(_NOT_PORTED)
+        if aec_enable and interval_ms != 20:
+            # the planner plans 20 ms of AEC per tick; the reference takes
+            # such a chain and returns packages of the wrong length
+            raise ValueError("the AEC needs 20 ms packages: pass "
+                             "aec_enable=False with another interval_ms")
         self.device = resolve_device(device)
+        self.fast = fast_mode()       # the mode, kept for the chain's life
         self.batch = batch
         self.freq = freq
         self.chn = chn
-        self.pkg_len = freq // 1000 * INTERVAL_MS
+        self.interval_ms = interval_ms
+        # frames per package; an interleaved package is pkg_len * chn long
+        self.pkg_len = freq // 1000 * interval_ms
         self.flags = (ns_enable, aec_enable, agc_enable, vad_enable)
         self.agc_gain_db = agc_gain_db
-        self.part_cap = aec_step.DEFAULT_PART_CAP
-        self.fifo_pkgs = AEC_INTERVALMS // INTERVAL_MS + 2
+        self.part_cap = part_cap
+        self.aec_backend = "aec"
+        self.ns_backend = "ns"
+        self.aec_interval_ms = aec_interval_ms
+        self.fifo_pkgs = aec_interval_ms // interval_ms + 2
         self.planner = AecPlanner(freq) if aec_enable else None
-        self.sub_len = freq // 1000 * 10
+        self.sub_len = freq // 1000 * (20 if freq <= 8000 else 10)
         self.play_count = 0   # _playPkgBuff_count mirror
         self.tick = 0
         self.state = self._init_state(batch)
@@ -92,10 +131,22 @@ class RecordChain:
         self.aec_nonfinite = torch.zeros((), dtype=torch.int64,
                                          device=self.device)
         # zoom to the 1x8000 shared-memory ring: a fixed gather per package
-        # (wmix.c:846-848)
-        self.zoom_idx = torch.as_tensor(
-            stepper.zoom_src_index(freq, 8000, self.pkg_len),
-            device=self.device)
+        # (wmix.c:846-848).  For chn=2 it takes the LEFT channel
+        # (wmix_pcm_zoom mode 0x21, src/wmix.c:205-212): frame index ->
+        # interleaved offset.  8 kHz mono needs none.
+        if freq != 8000 or chn != 1:
+            self.zoom_idx = torch.as_tensor(
+                stepper.zoom_src_index(freq, 8000, self.pkg_len) * chn,
+                device=self.device)
+        else:
+            self.zoom_idx = None
+
+    @property
+    def n8k(self) -> int:
+        """Samples of the 1x8000 output package."""
+        if self.zoom_idx is None:
+            return self.pkg_len
+        return int(self.zoom_idx.shape[0])
 
     def _init_state(self, batch: int) -> ChainState:
         dev = self.device
@@ -104,8 +155,9 @@ class RecordChain:
             aec=aec_step.init_eng_state(batch, self.part_cap, dev),
             agc=agc_mod.init_state(batch, dev),
             vad=vad_mod.init_state(batch, dev),
-            play_fifo=torch.zeros((batch, self.fifo_pkgs, self.pkg_len),
-                                  dtype=F32, device=dev))
+            play_fifo=torch.zeros(
+                (batch, self.fifo_pkgs, self.pkg_len * self.chn),
+                dtype=F32, device=dev))
 
     def reset_slots(self, slots) -> None:
         """Reinitialize the DSP state of the given stream slots (stream
@@ -133,7 +185,8 @@ class RecordChain:
             raise RuntimeError(
                 "kernel-layout AEC state cannot serve a non-steady plan; "
                 "16 kHz plans stay steady after startup so this indicates "
-                "planner state corruption")
+                "planner state corruption (or a kernel-layout snapshot "
+                "restored into an exact-mode chain)")
 
     def _plan_tick(self):
         """Host bookkeeping for one tick: FIFO slots + AEC plan."""
@@ -141,7 +194,7 @@ class RecordChain:
         add_slot = self.play_count
         self.play_count = (self.play_count + 1) % n
         c = self.play_count
-        g = c - AEC_INTERVALMS // INTERVAL_MS
+        g = c - self.aec_interval_ms // self.interval_ms
         g = min(max(g, 0), n)
         g = c - g
         if g >= n:
@@ -168,17 +221,21 @@ class RecordChain:
         return torch.as_tensor(x, device=self.device)
 
     def step(self, mic_pkg, play_pkg):
-        """One 20 ms tick.  mic_pkg / play_pkg: [B, pkg_len] int16 (mic
-        capture and the mixed output package written to the speaker this
-        tick), as numpy arrays or tensors (see `_on_device`).  Returns
-        (origin int16 [B, pkg_len], pkg_8k int16 [B, n8k], vad_flags int32
-        [B]) as tensors on the chain's device."""
+        """One tick.  mic_pkg / play_pkg: [B, pkg_len * chn] int16,
+        interleaved (mic capture and the mixed output package written to
+        the speaker this tick), as numpy arrays or tensors (see
+        `_on_device`).  Returns (origin int16 [B, pkg_len * chn], pkg_8k
+        int16 [B, n8k], vad_flags int32 [B]) as tensors on the chain's
+        device."""
         mic = self._on_device(mic_pkg)
         play = self._on_device(play_pkg)
         add_slot, get_slot, sig, dyn = self._plan_tick()
         steady = False
         if self.flags[1]:
-            steady = aec_package.is_steady_16k(sig) and \
+            # the package kernel serves steady 16 kHz fast-mode plans,
+            # as the reference's does
+            steady = self.fast and self.freq == 16000 and \
+                aec_package.is_steady_16k(sig) and \
                 aec_package.is_steady_dyn(dyn)
             self._ensure_aec_layout(steady, dyn)
         self.state, origin, pkg8k, vflags = self._package(
@@ -186,9 +243,9 @@ class RecordChain:
         return origin, pkg8k, vflags
 
     def run_chunk(self, mic_chunk, play_chunk):
-        """K packages: mic_chunk / play_chunk [K, B, pkg_len] int16.
-        Returns (origin [K, B, pkg_len] int16, pkg8k [K, B, n8k] int16,
-        vad_flags [K, B] int32)."""
+        """K packages: mic_chunk / play_chunk [K, B, pkg_len * chn] int16.
+        Returns (origin [K, B, pkg_len * chn] int16, pkg8k [K, B, n8k]
+        int16, vad_flags [K, B] int32)."""
         mic_chunk = self._on_device(mic_chunk)
         play_chunk = self._on_device(play_chunk)
         outs = [self.step(mic_chunk[k], play_chunk[k])
@@ -199,36 +256,47 @@ class RecordChain:
                  get_slot: int, sig, dyn, steady: bool):
         """The chain body for one package (wmix_tpu chain.py:524-573)."""
         ns_on, aec_on, agc_on, vad_on = self.flags
+        chn, exact = self.chn, not self.fast
         x = mic.to(I32)
         ns_st, aec_st, agc_st, vad_st = st.ns, st.aec, st.agc, st.vad
         if ns_on:
-            ns_st, x = ns_mod.process_pkg(ns_st, x, self.chn, self.freq)
+            ns_st, x = ns_mod.process_pkg(ns_st, x, chn, self.freq, exact)
 
         # in place: this tick's FIFO slot
         st.play_fifo[:, add_slot] = play.to(F32)
         if aec_on:
-            far = st.play_fifo[:, get_slot]
+            # aec_process2 stereo quirk: the LEFT channel only goes in
+            # and the output is duplicated to every channel
+            # (src/webrtc.c:410-483)
+            far = st.play_fifo[:, get_slot, ::chn]
+            near = x[:, ::chn]
             mult, nlp_mode = self.planner.mult, self.planner.nlp_mode
             if steady:
                 body = aec_package.build_chain_aec_body(
                     sig, self.sub_len, mult, nlp_mode)
             else:
                 body = aec_step.build_pkg_body(sig, self.sub_len, mult,
-                                               nlp_mode)
-            aec_st, out_f = body(aec_st, far, x.to(F32), dyn)
+                                               nlp_mode, exact)
+            aec_st, out_f = body(aec_st, far, near.to(F32), dyn)
             self.aec_nonfinite += (~torch.isfinite(out_f)).sum()
             x = aec_step.cast_out_int16(out_f)
+            if chn > 1:
+                x = x.repeat_interleave(chn, dim=1)
 
         if agc_on:
-            agc_st, x = agc_mod.process_pkg(agc_st, x, self.chn, self.freq,
+            agc_st, x = agc_mod.process_pkg(agc_st, x, chn, self.freq,
                                             self.agc_gain_db)
         vflags = torch.zeros((x.shape[0],), dtype=I32, device=x.device)
         if vad_on:
-            vad_st, x = vad_mod.process(vad_st, x, self.chn, self.freq)
+            # without interval_ms, as the reference calls it: the wrapper's
+            # subpackage is 20 ms up to 16 kHz, so a shorter package passes
+            # through with the flags unchanged
+            vad_st, x = vad_mod.process(vad_st, x, chn, self.freq)
             vflags = vad_st.reduce
 
         origin = x.to(torch.int16)
-        pkg8k = origin[:, self.zoom_idx]
+        pkg8k = origin if self.zoom_idx is None else \
+            origin[:, self.zoom_idx]
         return (ChainState(ns_st, aec_st, agc_st, vad_st, st.play_fifo),
                 origin, pkg8k, vflags)
 
@@ -261,8 +329,10 @@ def _tuple_from(cls, tree, device):
 def state_from_numpy(tree, device=None) -> ChainState:
     """A `wmix_tpu` ChainState, given as a tree of numpy arrays (its
     NamedTuples with numpy leaves), as the port's state on `device`.
-    Fields match by name; both AEC layouts (the exact-layout AecEngState
-    and the kernel layout with its state dict) are taken."""
+    Fields match by name, so every geometry and both arithmetic modes are
+    taken (the leaves' shapes carry the geometry; the mode changes no
+    leaf); so are both AEC layouts (the exact-layout AecEngState and the
+    kernel layout with its state dict)."""
     device = resolve_device(device)
     aec = tree.aec
     if hasattr(aec, "dev"):

@@ -19,6 +19,21 @@ file.  Leaves are in the order `jax.tree_util.tree_leaves` gives them
 `wmix_tpu.engine.checkpoint.snapshot` made of a 16 kHz fast-mode chain
 restores into the port: "pallas" in a header names the kernel layout, the
 port's `PackageAecState`.
+
+The header carries the geometry (`batch`, `freq`, `chn`, `interval_ms`,
+`aec_interval_ms`, `part_cap`, `flags`, the backends) and `restore` holds
+each against the target chain; `interval_ms` and `aec_interval_ms` are the
+port's additions (a header without them, as `wmix_tpu` writes it, is read
+as 20 and 400, and the play FIFO's shape is checked in any case).
+
+Arithmetic modes.  The header also records the mode the snapshot was
+taken in (`exact`), for the reader; the reference records none and checks
+none, because the mode changes no leaf of the state, and so a snapshot
+taken in one mode restores in the other here too.  The one exception is
+what the reference accepts and then fails on at its next step: a
+kernel-layout ("pallas") snapshot, which only a fast-mode chain can make,
+does not restore into an exact-mode chain, which never leaves the ring
+layout; `restore` refuses it with a ValueError.
 """
 from __future__ import annotations
 
@@ -105,6 +120,9 @@ def snapshot(chain) -> bytes:
         "batch": chain.batch,
         "freq": chain.freq,
         "chn": chain.chn,
+        "interval_ms": chain.interval_ms,
+        "aec_interval_ms": chain.aec_interval_ms,
+        "exact": not chain.fast,
         "flags": list(chain.flags),
         "agc_gain_db": chain.agc_gain_db,
         "part_cap": chain.part_cap,
@@ -138,10 +156,13 @@ def restore(chain, data: bytes) -> None:
 
     if header.get("chn", 1) != chain.chn:
         raise ValueError("chn mismatch")
-    for key in ("batch", "freq", "part_cap"):
-        if header[key] != getattr(chain, key):
+    for key, default in (("batch", None), ("freq", None),
+                         ("part_cap", None), ("interval_ms", 20),
+                         ("aec_interval_ms", 400)):
+        if header.get(key, default) != getattr(chain, key):
             raise ValueError(f"{key} mismatch: snapshot "
-                             f"{header[key]} != chain {getattr(chain, key)}")
+                             f"{header.get(key, default)} != chain "
+                             f"{getattr(chain, key)}")
     if tuple(header["flags"]) != tuple(chain.flags):
         raise ValueError("flags mismatch")
     want_ns = header.get("ns_backend", "ns")
@@ -158,6 +179,10 @@ def restore(chain, data: bytes) -> None:
                          + _NOT_PORTED)
     if want not in ("jax", "pallas"):
         raise ValueError(f"unknown aec_layout {want!r} in snapshot")
+    if want == "pallas" and not chain.fast:
+        raise ValueError("snapshot holds the kernel-layout AEC state of a "
+                         "fast-mode chain; an exact-mode chain keeps the "
+                         "ring layout and cannot take it")
     state = chain.state
     if want != _aec_layout(chain):
         aec = (aec_package.init_chain_aec(chain.batch, chain.part_cap,

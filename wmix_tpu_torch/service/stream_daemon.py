@@ -112,7 +112,7 @@ class StreamDaemon:
         self.address = address
         self.server = StreamServer(capacity, freq, **chain_kw)
         self.pkg_len = self.server.pkg_len
-        self.n8k = 8000 // 1000 * 20
+        self.n8k = self.server.chain.n8k
         self.interval_ms = 20
         self.chunk_pkgs = chunk_pkgs
         self.realtime = realtime
@@ -367,7 +367,8 @@ def main(argv=None) -> None:
     # program here.
     t0 = time.time()
     chain = d.server.chain
-    if chain.flags[1] and chain.device.type == "cuda":
+    if chain.flags[1] and chain.device.type == "cuda" and chain.fast \
+            and chain.freq == 16000:
         from wmix_tpu_torch import kernels
         print("wmix-tpu-torch-stream: building the AEC kernel...",
               flush=True)

@@ -82,20 +82,30 @@ class StreamServer:
     (tick()) so tests and embedders control pacing.  `device=None` (among
     `chain_kw`) passes through to the chain and means the card.
     `max_depth` is the largest `depth` that `tick_pipelined` will be given:
-    the pinned output ring is allocated for it here, once."""
+    the pinned output ring is allocated for it here, once.
+
+    Like the reference's, the server is mono with 20 ms packages at any
+    rate the chain takes (8, 16 or 32 kHz): its queues and the wire
+    protocol behind it carry `freq // 1000 * 20` samples per package.
+    `chain_kw` passes the chain's other options through (enable flags,
+    `agc_gain_db`, `part_cap`, `aec_interval_ms`)."""
 
     def __init__(self, capacity: int, freq: int, max_depth: int = 12,
                  **chain_kw):
         self.capacity = capacity
         self.freq = freq
         self.pkg_len = freq // 1000 * 20
+        if chain_kw.get("chn", 1) != 1 or \
+                chain_kw.get("interval_ms", 20) != 20:
+            raise ValueError("the stream server is mono with 20 ms "
+                             "packages, as the reference's is")
         self.chain = RecordChain(capacity, freq, **chain_kw)
         self.max_depth = max_depth
         dev = self.chain.device
         blk = ((capacity, self.pkg_len), torch.int16)
         self._in_ring = PinnedRing([blk, blk], UPLOAD_SLOTS, dev)
         self._out_ring = PinnedRing(
-            [blk, ((capacity, self.chain.zoom_idx.shape[0]), torch.int16),
+            [blk, ((capacity, self.chain.n8k), torch.int16),
              ((capacity,), torch.int32)], 2 * max_depth + 2, dev)
         self._free = list(range(capacity))[::-1]
         # numpy so feed_batch can validate B handles vectorized

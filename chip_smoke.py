@@ -61,8 +61,16 @@ non-zero and prints no result):
      CPU are compared on 2^20 inputs each, and only where those differ
      does the gate fall back to 1 LSB with the integer leaves equal); ms
      per package beside phase 3's fast package
-Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9, 11
-and 12, each counted from 0) and, last, {"ok": true, "device": {...}}.
+ 13. the integer chain on the card: RecordChain(4096, 16000) and
+     RecordChain(4096, 8000) with aec_backend="aecm", ns_backend="nsx"
+     (26 and 12 packages of seeded audio; the 400 ms echo path gives the
+     AECM its first far end at package 21), no kernel launch; the first 4
+     streams against the port's CPU chain: equal, outputs, VAD flags and
+     every state leaf; ms per package beside phase 3's; the aten
+     operations of one more package of each chain and of phase 3's chain
+     (`utils.trace.OpCounter`: all, and those that are not views)
+Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9, 11,
+12 and 13, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -653,6 +661,61 @@ def phase_exact(aec_package, main_pkg_ms, name_power) -> int:
     return launches
 
 
+def counted_step(chain, seed) -> dict:
+    """The aten operations of one package of `chain` on its device."""
+    from wmix_tpu_torch.utils.trace import OpCounter
+    n = chain.pkg_len * chain.chn
+    rng = np.random.RandomState(seed)
+    mic = torch.from_numpy((rng.randn(chain.batch, n) * 3000).astype(
+        np.int16)).cuda()
+    play = torch.from_numpy((rng.randn(chain.batch, n) * 5000).astype(
+        np.int16)).cuda()
+    torch.cuda.synchronize()
+    with OpCounter() as c:
+        chain.step(mic, play)
+    torch.cuda.synchronize()
+    return {"ops": c.ops, "launching": c.launching}
+
+
+def phase_integer(aec_package, main_chain, main_pkg_ms, name_power) -> int:
+    """13. the integer chain (AECM + NSX) on the card against the CPU."""
+    from wmix_tpu_torch.engine.checkpoint import _leaves
+    kw = dict(aec_backend="aecm", ns_backend="nsx")
+    rows, launches = {}, 0
+    for i, (name, freq, n, timed) in enumerate((("16k", 16000, 26, 6),
+                                                ("8k", 8000, 12, 6))):
+        got, want, card_chain, cpu_chain, pkg_ms, nl = run_chain_on_card(
+            aec_package, freq, kw, n, timed, seed=40 + i)
+        d, d8, vad, share = compare_outputs(got, want)
+        leaves = [(a[:4].cpu(), b) for a, b in
+                  zip(_leaves(card_chain.state), _leaves(cpu_chain.state))]
+        unequal = sum(not torch.equal(a, b) for a, b in leaves)
+        if d or d8 or not vad or unequal:
+            raise AssertionError(
+                f"phase 13 {name}: card vs cpu integer chain {d} and {d8} "
+                f"LSB, VAD equal {vad}, {unequal} of {len(leaves)} state "
+                "leaves differ")
+        if nl or card_chain.aec_backend != "aecm" or \
+                card_chain.ns_backend != "nsx" or \
+                card_chain.planner.ec_startup:
+            raise AssertionError(f"phase 13 {name}: {nl} kernel launches, "
+                                 "or the AECM never left its start-up")
+        if not any(bool(g[0].any()) for g in got):
+            raise AssertionError(f"phase 13 {name}: silent output")
+        launches += nl
+        rows[name] = dict(
+            freq=freq, packages=n, max_lsb_origin=d, max_lsb_8k=d8,
+            vad_flags_equal=vad, state_leaves=len(leaves),
+            state_leaves_unequal=unequal, kernel_launches=nl,
+            pkg_ms=round(pkg_ms, 3),
+            over_16k_mono_fast=round(pkg_ms / main_pkg_ms, 3),
+            aten_ops_per_pkg=counted_step(card_chain, seed=50 + i))
+    phase("integer_chain", batch=B_MAIN, card=name_power,
+          pkg_ms_16k_mono_fast_phase3=round(main_pkg_ms, 3),
+          aten_ops_per_pkg_phase3=counted_step(main_chain, seed=52), **rows)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -838,6 +901,8 @@ def main() -> int:
                                     name_power).items():
         by_phase[f"11_{case}"] = n
     by_phase["12"] = phase_exact(aec_package, pkg_ms_main, name_power)
+    by_phase["13"] = phase_integer(aec_package, chain, pkg_ms_main,
+                                   name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{

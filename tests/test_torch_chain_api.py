@@ -35,13 +35,30 @@ def test_positional_interval_ms():
 @pytest.mark.parametrize("kw", [dict(aec_backend="aecm"),
                                 dict(ns_backend="nsx")])
 def test_integer_backends_name_the_roadmap_item(kw):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        RecordChain(1, 16000, device="cpu", **kw)
-    # a backend of a stage that is off is not built, as in the reference
+    """The integer backends of ROADMAP item 9 build and run, with the
+    reference's backend names; a backend of a stage that is off is not
+    built, as in the reference."""
+    from wmix_tpu.engine.chain import RecordChain as JaxChain
+    from wmix_tpu_torch.dsp.nsx import NsxState
+    from wmix_tpu_torch.engine.aecm_step import AecmEngState, AecmPlanner
+    ch = RecordChain(1, 16000, device="cpu", **kw)
+    jc = JaxChain(1, 16000, **kw)
+    assert (ch.aec_backend, ch.ns_backend) == (jc.aec_backend, jc.ns_backend)
+    if "aec_backend" in kw:
+        assert isinstance(ch.planner, AecmPlanner)
+        assert isinstance(ch.state.aec, AecmEngState)
+    else:
+        assert isinstance(ch.state.ns, NsxState)
+    pkg = (np.random.RandomState(1).randn(1, 320) * 3000).astype(np.int16)
+    origin, pkg8k, vflags = ch.step(pkg, pkg)
+    assert origin.dtype == torch.int16 and origin.shape == (1, 320)
     off = dict(aec_enable=False) if "aec_backend" in kw else \
         dict(ns_enable=False)
-    assert RecordChain(1, 16000, device="cpu", **kw, **off).planner is None \
-        or "ns_backend" in kw
+    ch_off = RecordChain(1, 16000, device="cpu", **kw, **off)
+    jc_off = JaxChain(1, 16000, **kw, **off)
+    assert (ch_off.aec_backend, ch_off.ns_backend) == \
+        (jc_off.aec_backend, jc_off.ns_backend) == ("aec", "ns")
+    assert ch_off.planner is None or "ns_backend" in kw
 
 
 def test_reference_guards_hold():

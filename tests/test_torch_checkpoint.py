@@ -110,11 +110,28 @@ def test_restore_rejects_unknown_planner_field():
 @pytest.mark.parametrize("key, value", [("aec_layout", "aecm"),
                                         ("ns_backend", "nsx")])
 def test_restore_rejects_unported_backends(key, value):
-    """Headers of the integer chain's states name what is missing."""
-    blob = _edit_header(checkpoint.snapshot(_chain()),
-                        lambda h: h.__setitem__(key, value))
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
+    """A snapshot of a chain with an integer backend restores into a chain
+    with that backend, leaf for leaf; into a float chain it raises the
+    reference's message, and so does a float snapshot into it."""
+    kw = dict(aec_backend="aecm") if key == "aec_layout" else \
+        dict(ns_backend="nsx")
+    a = _chain(**kw)
+    mic, play = _audio(3, seed=4)
+    a.run_chunk(mic, play)
+    blob = checkpoint.snapshot(a)
+    with np.load(io.BytesIO(blob)) as z:
+        assert json.loads(bytes(z["header"].tobytes()).decode())[key] == \
+            value
+    b = _chain(**kw)
+    checkpoint.restore(b, blob)
+    assert (b.tick, b.play_count) == (a.tick, a.play_count)
+    _assert_states_equal(b.state, a.state)
+    name = "aec_backend='aecm'" if key == "aec_layout" else \
+        "ns_backend='nsx'"
+    with pytest.raises(ValueError, match=name):
         checkpoint.restore(_chain(), blob)
+    with pytest.raises(ValueError, match="construct the target"):
+        checkpoint.restore(_chain(**kw), checkpoint.snapshot(_chain()))
 
 
 def test_restore_rejects_wrong_leaf_shape_and_count():
@@ -141,10 +158,12 @@ def _assert_states_equal(got, want):
         assert torch.equal(x, y), i
 
 
-@pytest.mark.parametrize("layout", ["jax", "pallas"])
+@pytest.mark.parametrize("layout", ["jax", "pallas", "aecm"])
 def test_wmix_tpu_snapshot_restores_into_the_port(layout, monkeypatch):
     """A snapshot made by `wmix_tpu.engine.checkpoint` of a fresh 16 kHz
-    fast-mode chain, in either AEC layout, restores into the port and
+    fast-mode chain, in either AEC layout or with the integer backends
+    (AECM and NSX, whose uint32 leaves the port holds in int64), restores
+    into the port and
     equals `state_from_numpy` of the same state leaf by leaf: the two
     packages flatten their states in the same order."""
     import jax
@@ -152,7 +171,9 @@ def test_wmix_tpu_snapshot_restores_into_the_port(layout, monkeypatch):
     from wmix_tpu.engine import aec_pallas
     from wmix_tpu.engine import checkpoint as jax_checkpoint
     from wmix_tpu.engine.chain import RecordChain as JaxChain
-    jc = JaxChain(B, FREQ)
+    integer = dict(aec_backend="aecm", ns_backend="nsx") \
+        if layout == "aecm" else {}
+    jc = JaxChain(B, FREQ, **integer)
     for _ in range(5):      # host cursors away from their start
         jc._plan_tick()
     if layout == "pallas":
@@ -164,7 +185,7 @@ def test_wmix_tpu_snapshot_restores_into_the_port(layout, monkeypatch):
     jc.state = jax.tree_util.tree_unflatten(treedef, leaves)
     blob = jax_checkpoint.snapshot(jc)
 
-    port = _chain()
+    port = _chain(**integer)
     checkpoint.restore(port, blob)
     assert checkpoint._aec_layout(port) == layout
     assert port.tick == jc.tick == 5 and port.play_count == jc.play_count

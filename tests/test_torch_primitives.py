@@ -193,7 +193,8 @@ def test_import_is_jax_free():
             "want = ['engine.chain', 'engine.checkpoint', 'engine.mixbus', "
             "'kernels', 'staging', 'config', 'ops.g711', 'ops.mixer', "
             "'service.stream_server', 'service.stream_daemon', "
-            "'utils.trace']\n"
+            "'utils.trace', 'dsp.nsx', 'dsp.aecm', 'engine.aecm_step', "
+            "'dsp._nsx_tables', 'dsp._aecm_tables']\n"
             "missing = [w for w in want "
             "if 'wmix_tpu_torch.' + w not in sys.modules]\n"
             "assert not missing, missing\n"
@@ -220,6 +221,10 @@ DEVICE_ENTRY_POINTS = [
     ("dsp.agc", "init_state"),
     ("dsp.vad", "init_state"),
     ("dsp.aec", "init_dev"),
+    ("dsp.nsx", "init_state"),
+    ("dsp.aecm", "make_init_state"),
+    ("engine.aecm_step", "init_eng_state"),
+    ("engine.aecm_step", "AecmBatch"),
     ("engine.mixbus", "MixBus"),
     ("staging", "PinnedRing"),
 ]

@@ -15,6 +15,14 @@ signature, one to four CPU-minutes a case.
 tests/test_torch_chain_exact.py holds wmix_tpu_torch's exact chain
 bit-equal to these files, and a test there marked `slow` calls
 `reference_run` again and compares it with the file.
+
+The chains with an integer backend (`INT_CASES`: NSX and AECM, alone and
+together) are stored the same way as `tests/data/torch_chain_int_<case>
+.npz`, from `int_audio`; tests/test_torch_chain_int.py holds the port to
+them.  A chain with both integer backends does not depend on the mode.
+For the cases of `SNAPSHOT_CASES` the file also holds `snapshot`, the
+bytes of `wmix_tpu.engine.checkpoint.snapshot` of the chain after
+`n_pkgs // 2` packages, which the port must restore and run on from.
 """
 from __future__ import annotations
 
@@ -40,8 +48,50 @@ CASES = {
 }
 
 
+# the integer backends; a 60 ms echo path, so that the far end reaches
+# the AECM within the run
+_INT = dict(aec_backend="aecm", ns_backend="nsx", aec_interval_ms=60)
+INT_CASES = {
+    "int_16k_mono": (16000, _INT, 12, 201),
+    "int_8k_mono": (8000, _INT, 12, 202),
+    "int_16k_stereo": (16000, dict(_INT, chn=2), 12, 203),
+    "aecm_ns_16k": (16000, dict(aec_backend="aecm", aec_interval_ms=60), 10,
+                    204),
+    "aec_nsx_16k": (16000, dict(ns_backend="nsx"), 8, 205),
+    "nsx_32k_stereo": (32000, dict(ns_backend="nsx", chn=2), 6, 206),
+}
+
+
+SNAPSHOT_CASES = ("int_16k_mono",)
+
+
 def path_of(case: str) -> str:
-    return os.path.join(DATA_DIR, f"torch_chain_exact_{case}.npz")
+    kind = "int" if case in INT_CASES else "exact"
+    return os.path.join(DATA_DIR, f"torch_chain_{kind}_{case}.npz")
+
+
+def int_audio(case: str):
+    """(mic, play) int16 [K, B, pkg_len * chn] of an integer case: a far end
+    of noise bursts, and a microphone that hears a tone, noise and the far
+    end's package of three ticks before at half level."""
+    freq, kw, n_pkgs, seed = INT_CASES[case]
+    chn = kw.get("chn", 1)
+    n = freq // 1000 * 20
+    rng = np.random.RandomState(seed)
+    burst = rng.uniform(0, 1, (n_pkgs, B, 1, 1)) > 0.3
+    play = rng.randn(n_pkgs, B, n, chn) * 6000 * burst
+    t = (np.arange(n_pkgs * n).reshape(n_pkgs, 1, n, 1)) / freq
+    tone = 2000 * np.sin(2 * np.pi * rng.uniform(200, 1500, (1, B, 1, chn))
+                         * t)
+    echo = np.zeros_like(play)
+    echo[3:] = 0.5 * play[:-3]
+    mic = tone + rng.randn(n_pkgs, B, n, chn) * 500 + echo
+    mic[n_pkgs // 2, 0] = 0        # a silent package on one stream
+
+    def cast(x):
+        return np.clip(np.round(x), -32768, 32767).astype(np.int16).reshape(
+            n_pkgs, B, n * chn)
+    return cast(mic), cast(play)
 
 
 def audio(case: str):
@@ -88,11 +138,20 @@ def reference_run(case: str) -> dict:
     from wmix_tpu.dsp import floatops
     from wmix_tpu.engine.chain import RecordChain
     assert not floatops.fast_mode()
-    freq, kw, n_pkgs, _seed = CASES[case]
-    mic, play = audio(case)
+    if case in INT_CASES:
+        freq, kw, n_pkgs, _seed = INT_CASES[case]
+        mic, play = int_audio(case)
+    else:
+        freq, kw, n_pkgs, _seed = CASES[case]
+        mic, play = audio(case)
     ch = RecordChain(B, freq, **kw)
-    outs = [[np.asarray(v) for v in ch.step(mic[k], play[k])]
-            for k in range(n_pkgs)]
+    outs, extra = [], {}
+    for k in range(n_pkgs):
+        if k == n_pkgs // 2 and case in SNAPSHOT_CASES:
+            from wmix_tpu.engine import checkpoint
+            extra["snapshot"] = np.frombuffer(checkpoint.snapshot(ch),
+                                              np.uint8)
+        outs.append([np.asarray(v) for v in ch.step(mic[k], play[k])])
     leaves = jax.tree_util.tree_flatten_with_path(ch.state)[0]
     return dict(
         origin=np.stack([o[0] for o in outs]).astype(np.int16),
@@ -100,14 +159,14 @@ def reference_run(case: str) -> dict:
         vflags=np.stack([o[2] for o in outs]).astype(np.int32),
         leaf_names=np.array([jax.tree_util.keystr(p) for p, _ in leaves]),
         leaf_sha256=np.array([leaf_digest(np.asarray(x))
-                              for _, x in leaves]))
+                              for _, x in leaves]), **extra)
 
 
 def main(argv) -> None:
     import time
     sys.path.insert(0, REPO)
     os.makedirs(DATA_DIR, exist_ok=True)
-    for case in argv or list(CASES):
+    for case in argv or list(CASES) + list(INT_CASES):
         t0 = time.time()
         np.savez_compressed(path_of(case), **reference_run(case))
         print(f"{case}: {os.path.getsize(path_of(case))} bytes, "

@@ -1,9 +1,10 @@
 """wmix_tpu_torch — the wmix record chain in PyTorch, with CUDA kernels for Hopper.
 
 A port of `wmix_tpu` (the JAX package beside it, which stays the reference):
-the batched 16 kHz record chain NS -> AEC -> AGC -> VAD over B stream slots,
-with the steady-state AEC package as one hand-written CUDA kernel
-(`csrc/aec_package.cu`).  Every module runs on CPU tensors too, where the
+the batched record chain NS -> AEC -> AGC -> VAD over B stream slots, with
+the steady-state AEC package as one hand-written CUDA kernel
+(`csrc/aec_package.cu`), and its integer variant with the fixed-point
+noise suppressor (NSX) and the mobile echo canceller (AECM).  Every module runs on CPU tensors too, where the
 kernel's plain PyTorch version stands in for it.
 
 Around the chain: checkpoint/resume of its state, the serving layer (a
@@ -12,15 +13,18 @@ packages between host and card through pinned staging buffers), and the
 play half of the engine, the integer mix bus with G.711.
 
 Layout mirrors `wmix_tpu`:
-  dsp      — intops, floatops, ns, agc, vad, aec (per-block AEC math)
+  dsp      — intops, floatops, ns, agc, vad, aec (per-block AEC math),
+             nsx (the fixed-point NS), aecm (per-block AECM math), with
+             their tables in _nsx_tables and _aecm_tables
   ops      — rdft (fast packing over torch.fft), stepper (zoom pattern),
              mixer (device half: the saturating mix), g711 (table gathers)
   engine   — aec_plan (host planner), aec_step (exact-layout AEC),
-             aec_package (the kernel's module), chain (RecordChain),
+             aec_package (the kernel's module), aecm_step (the AECM's
+             planner and package step), chain (RecordChain),
              checkpoint (snapshot/restore), mixbus (MixBus, TaskCursor)
   service  — stream_server (StreamServer), stream_daemon (StreamDaemon,
              StreamSocketClient, the `wmix-tpu-torch-stream` entry point)
-  utils    — trace (StepTimer, torch.profiler wrappers)
+  utils    — trace (StepTimer, OpCounter, torch.profiler wrappers)
   config   — EngineConfig
   staging  — the pinned host buffer ring behind every per-tick copy
   device   — the default-device rule (the card unless the CPU is asked for)

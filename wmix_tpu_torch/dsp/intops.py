@@ -1,4 +1,4 @@
-"""Exact fixed-point primitives shared by the AGC and VAD.
+"""Exact fixed-point primitives shared by the AGC, VAD, NSX and AECM.
 
 Port of `wmix_tpu/dsp/intops.py` on torch tensors:
 
@@ -11,7 +11,15 @@ Port of `wmix_tpu/dsp/intops.py` on torch tensors:
     "trunc")`, never `//`.
 
 The reference's bit-serial divisions exist only because TPU integer
-division is inexact; torch division is exact, so they are not carried.
+division is inexact; torch division is exact, so they are not carried:
+the `*_exact` names divide directly.  A zero denominator is replaced
+before the division and the reference's result selected after it, since
+the CPU raises on an integer division by zero and the card returns an
+unspecified value.
+
+Shift counts out of range: torch gives 0 for a left shift and the sign
+for a right shift by a negative count or one >= the width, as XLA does;
+uint32 values held in int64 are masked to 32 bits after a left shift.
 """
 from __future__ import annotations
 
@@ -56,19 +64,23 @@ def downmix(x: torch.Tensor, chn: int) -> torch.Tensor:
     return torch.div(s, chn, rounding_mode="trunc").to(x.dtype)
 
 
-def div_w32_w16(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
-    """WebRtcSpl_DivW32W16: |num| / (|den| & 0xFFFF) truncated, sign
-    restored, 0x7FFFFFFF for den == 0 (the reference's exact form)."""
+def _den_safe(den: torch.Tensor) -> torch.Tensor:
+    return torch.where(den == 0, torch.ones_like(den), den)
+
+
+def div_w32_w16(num, den) -> torch.Tensor:
+    """WebRtcSpl_DivW32W16: |num| / (|den| & 0xFFFF) truncated (0xFFFFFFFF
+    when that is 0), the sign restored, int32 wrap; 0x7FFFFFFF for
+    den == 0."""
     num = num.to(I64)
     den = den.to(I64)
-    na = num.abs() & U32_MASK            # |INT32_MIN| = 0x80000000
+    na = num.abs() & U32_MASK
     da = den.abs() & 0xFFFF
-    q = torch.where(da == 0, torch.full_like(na, U32_MASK),
-                    torch.div(na, da.clamp_min(1), rounding_mode="trunc"))
-    qi = q.to(I32)                       # uint32 -> int32 wrap
-    neg = (num < 0) ^ (den < 0)
-    qi = torch.where(neg, -qi, qi)
-    return torch.where(den == 0, torch.full_like(qi, 0x7FFFFFFF), qi)
+    q = torch.where(da == 0, U32_MASK,
+                    torch.div(na, _den_safe(da), rounding_mode="trunc"))
+    qi = wrap32(q).to(I64)
+    qi = wrap32(torch.where((num < 0) ^ (den < 0), -qi, qi))
+    return torch.where(den == 0, 0x7FFFFFFF, qi)
 
 
 def _clz_cascade(v: torch.Tensor, masks) -> torch.Tensor:
@@ -133,3 +145,77 @@ def div_u32_u16(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     den = den.to(I64) & 0xFFFF
     q = torch.div(num, den.clamp_min(1), rounding_mode="trunc")
     return torch.where(den == 0, torch.full_like(q, U32_MASK), q)
+
+
+def shr_u32(x, n) -> torch.Tensor:
+    """Logical right shift of an int64-held uint32 by a count that may be a
+    tensor; a count below 0 or above 31 gives 0, as XLA's uint32 shift."""
+    x = torch.as_tensor(x).to(I64) & U32_MASK
+    n = torch.as_tensor(n, device=x.device).to(I64)
+    return torch.where((n < 0) | (n > 31), 0, x >> n.clamp(0, 31))
+
+
+def norm_w16(a: torch.Tensor) -> torch.Tensor:
+    """WebRtcSpl_NormW16: redundant sign bits of an int16 value (held in
+    int32, wrapped to int16 first); 0 for a == 0."""
+    a = wrap16(a)
+    v = torch.where(a < 0, ~a, a) & 0x7FFF
+    zeros = torch.zeros_like(v)
+    for m, n in ((0x7F80, 8), (0x7800, 4), (0x6000, 2), (0x4000, 1)):
+        zeros = zeros + torch.where(((v << zeros) & m) == 0, n, 0)
+    return torch.where(a == 0, 0, zeros).to(I32)
+
+
+def shift_w32(x, c) -> torch.Tensor:
+    """WEBRTC_SPL_SHIFT_W32: left shift (int32 wrap) when c >= 0, arithmetic
+    right shift otherwise; the count is clipped to 31 either way."""
+    x = torch.as_tensor(x).to(I32)
+    c = torch.as_tensor(c, device=x.device).to(I32)
+    return torch.where(c >= 0, x << c.clamp(0, 31), x >> (-c).clamp(0, 31))
+
+
+def shift_u32(x, c) -> torch.Tensor:
+    """WEBRTC_SPL_SHIFT_U32 on an int64-held uint32: left shift (mod 2^32)
+    when c >= 0, logical right shift otherwise, the count clipped to 31."""
+    x = torch.as_tensor(x).to(I64) & U32_MASK
+    c = torch.as_tensor(c, device=x.device).to(I64)
+    return torch.where(c >= 0, (x << c.clamp(0, 31)) & U32_MASK,
+                       x >> (-c).clamp(0, 31))
+
+
+def popcount32(a: torch.Tensor) -> torch.Tensor:
+    """Bit count of the low 32 bits, as int32."""
+    v = a.to(I64) & U32_MASK
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & U32_MASK) >> 24).to(I32)
+
+
+def mul_16_u16(a, b) -> torch.Tensor:
+    """WEBRTC_SPL_MUL_16_U16: the low 32 bits of a * (b & 0xFFFF), as
+    int32."""
+    return wrap32((a.to(I64) & U32_MASK) * (b.to(I64) & 0xFFFF))
+
+
+def div_u32_u32(num, den, zero_result: int = U32_MASK) -> torch.Tensor:
+    """uint32 / uint32 (int64-held), truncating; `zero_result` for
+    den == 0."""
+    num = num.to(I64) & U32_MASK
+    den = den.to(I64) & U32_MASK
+    q = torch.div(num, _den_safe(den), rounding_mode="trunc")
+    return torch.where(den == 0, zero_result & U32_MASK, q)
+
+
+div_w32_w16_exact = div_w32_w16    # the reference's name at NSX/AECM sites
+
+
+def div_w32_w32_exact(num, den) -> torch.Tensor:
+    """C int32 / int32, truncating toward zero (INT32_MIN / -1 wraps to
+    INT32_MIN); 0x7FFFFFFF for den == 0, the guard of the NSX call
+    sites."""
+    num = num.to(I64)
+    den = den.to(I64)
+    q = torch.div(num.abs(), _den_safe(den.abs()), rounding_mode="trunc")
+    q = wrap32(torch.where((num < 0) ^ (den < 0), -q, q))
+    return torch.where(den == 0, 0x7FFFFFFF, q)

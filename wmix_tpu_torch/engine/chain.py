@@ -31,7 +31,20 @@ tick whatever `interval_ms` is, so a chain of another package length runs
 with the AEC off only (the reference takes it with the AEC on and returns
 packages of twice the length; the port raises).  The
 arithmetic mode (`floatops`) is read when the chain is built and kept on
-it.  The AECM/NSX backends are not ported.
+it.
+
+The integer backends: `ns_backend="nsx"` runs the fixed-point noise
+suppressor (`dsp/nsx.py`) in place of the float one, and
+`aec_backend="aecm"` the mobile echo canceller (`engine/aecm_step.py`) in
+place of the float AEC, int16-valued int32 in and out, in the ring layout
+of its own planner; the AGC and VAD are fixed-point already, so a chain
+with both integer backends is integer end to end and its result does not
+depend on the arithmetic mode.
+
+`WMIX_TRACE_STEPS=1` when the chain is built gives it a `StepTimer`
+(`step_timer`) that times every `run_chunk` against its K packages of
+audio; on the card the step ends with a synchronize, so that it times the
+work and not its launches.
 """
 from __future__ import annotations
 
@@ -43,25 +56,25 @@ import torch
 from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp import agc as agc_mod
 from wmix_tpu_torch.dsp import ns as ns_mod
+from wmix_tpu_torch.dsp import nsx as nsx_mod
 from wmix_tpu_torch.dsp import vad as vad_mod
 from wmix_tpu_torch.dsp.aec import AecDev
 from wmix_tpu_torch.dsp.floatops import fast_mode
-from wmix_tpu_torch.engine import aec_package, aec_step
+from wmix_tpu_torch.engine import aec_package, aec_step, aecm_step
 from wmix_tpu_torch.engine.aec_plan import AecPlanner
 from wmix_tpu_torch.ops import stepper
+from wmix_tpu_torch.utils import trace
 
 F32 = torch.float32
 I32 = torch.int32
 
 AEC_INTERVALMS = 400      # platform/alsa/plat.h:19; FIFO of 400/20+2 = 22
 
-_NOT_PORTED = ("the integer NSX+AECM chain is not ported to wmix_tpu_torch "
-               "yet (ROADMAP section 1, item 9)")
-
 
 class ChainState(NamedTuple):
-    ns: ns_mod.NsState
-    aec: object               # AecEngState, or PackageAecState once steady
+    ns: object                # NsState, or NsxState with ns_backend="nsx"
+    aec: object               # AecEngState, or PackageAecState once steady;
+                              # AecmEngState with aec_backend="aecm"
     agc: agc_mod.AgcState
     vad: vad_mod.VadState
     play_fifo: torch.Tensor   # [B, 22, pkg_len * chn] f32 (int16-valued)
@@ -97,9 +110,6 @@ class RecordChain:
                 ns_backend not in ("ns", "nsx"):
             raise ValueError("aec_backend is 'aec' or 'aecm', ns_backend "
                              "'ns' or 'nsx'")
-        if (aec_backend == "aecm" and aec_enable) or \
-                (ns_backend == "nsx" and ns_enable):
-            raise NotImplementedError(_NOT_PORTED)
         if aec_enable and interval_ms != 20:
             # the planner plans 20 ms of AEC per tick; the reference takes
             # such a chain and returns packages of the wrong length
@@ -116,11 +126,16 @@ class RecordChain:
         self.flags = (ns_enable, aec_enable, agc_enable, vad_enable)
         self.agc_gain_db = agc_gain_db
         self.part_cap = part_cap
-        self.aec_backend = "aec"
-        self.ns_backend = "ns"
+        self.aec_backend = aec_backend if aec_enable else "aec"
+        self.ns_backend = ns_backend if ns_enable else "ns"
         self.aec_interval_ms = aec_interval_ms
         self.fifo_pkgs = aec_interval_ms // interval_ms + 2
-        self.planner = AecPlanner(freq) if aec_enable else None
+        if not aec_enable:
+            self.planner = None
+        elif self.aec_backend == "aecm":
+            self.planner = aecm_step.AecmPlanner(freq)
+        else:
+            self.planner = AecPlanner(freq)
         self.sub_len = freq // 1000 * (20 if freq <= 8000 else 10)
         self.play_count = 0   # _playPkgBuff_count mirror
         self.tick = 0
@@ -130,6 +145,8 @@ class RecordChain:
         # count, read only by whoever wants it
         self.aec_nonfinite = torch.zeros((), dtype=torch.int64,
                                          device=self.device)
+        self.step_timer = trace.StepTimer() if trace.steps_enabled() \
+            else None
         # zoom to the 1x8000 shared-memory ring: a fixed gather per package
         # (wmix.c:846-848).  For chn=2 it takes the LEFT channel
         # (wmix_pcm_zoom mode 0x21, src/wmix.c:205-212): frame index ->
@@ -150,9 +167,13 @@ class RecordChain:
 
     def _init_state(self, batch: int) -> ChainState:
         dev = self.device
+        ns_init = nsx_mod.init_state if self.ns_backend == "nsx" else \
+            ns_mod.init_state
         return ChainState(
-            ns=ns_mod.init_state(batch, self.freq, dev),
-            aec=aec_step.init_eng_state(batch, self.part_cap, dev),
+            ns=ns_init(batch, self.freq, dev),
+            aec=(aecm_step.init_eng_state(batch, self.freq, dev)
+                 if self.aec_backend == "aecm" else
+                 aec_step.init_eng_state(batch, self.part_cap, dev)),
             agc=agc_mod.init_state(batch, dev),
             vad=vad_mod.init_state(batch, dev),
             play_fifo=torch.zeros(
@@ -203,6 +224,10 @@ class RecordChain:
             g += n
         if self.planner is None:
             sig, dyn = (), {}
+        elif self.aec_backend == "aecm":
+            plan = self.planner.plan_pkg()
+            sig = plan.signature()
+            dyn = aecm_step.pack_dyn(plan)
         else:
             plan = self.planner.plan_pkg()
             sig = plan.signature()
@@ -231,7 +256,7 @@ class RecordChain:
         play = self._on_device(play_pkg)
         add_slot, get_slot, sig, dyn = self._plan_tick()
         steady = False
-        if self.flags[1]:
+        if self.flags[1] and self.aec_backend == "aec":
             # the package kernel serves steady 16 kHz fast-mode plans,
             # as the reference's does
             steady = self.fast and self.freq == 16000 and \
@@ -246,6 +271,16 @@ class RecordChain:
         """K packages: mic_chunk / play_chunk [K, B, pkg_len * chn] int16.
         Returns (origin [K, B, pkg_len * chn] int16, pkg8k [K, B, n8k]
         int16, vad_flags [K, B] int32)."""
+        if self.step_timer is None:
+            return self._run_chunk(mic_chunk, play_chunk)
+        self.step_timer.budget_ms = mic_chunk.shape[0] * self.interval_ms
+        with self.step_timer.step():
+            outs = self._run_chunk(mic_chunk, play_chunk)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return outs
+
+    def _run_chunk(self, mic_chunk, play_chunk):
         mic_chunk = self._on_device(mic_chunk)
         play_chunk = self._on_device(play_chunk)
         outs = [self.step(mic_chunk[k], play_chunk[k])
@@ -259,12 +294,24 @@ class RecordChain:
         chn, exact = self.chn, not self.fast
         x = mic.to(I32)
         ns_st, aec_st, agc_st, vad_st = st.ns, st.aec, st.agc, st.vad
-        if ns_on:
+        if ns_on and self.ns_backend == "nsx":
+            ns_st, x = nsx_mod.process_pkg(ns_st, x, chn, self.freq)
+        elif ns_on:
             ns_st, x = ns_mod.process_pkg(ns_st, x, chn, self.freq, exact)
 
         # in place: this tick's FIFO slot
         st.play_fifo[:, add_slot] = play.to(F32)
-        if aec_on:
+        if aec_on and self.aec_backend == "aecm":
+            # the AECM path is integer end to end: int16-valued int32 in
+            # and out (the wrapper's AECM branch has no float stage); the
+            # stereo quirk as below
+            body = aecm_step.build_pkg_body(sig, self.sub_len,
+                                            self.planner.mult)
+            far = st.play_fifo[:, get_slot, ::chn].to(I32)
+            aec_st, x = body(aec_st, far, x[:, ::chn], dyn)
+            if chn > 1:
+                x = x.repeat_interleave(chn, dim=1)
+        elif aec_on:
             # aec_process2 stereo quirk: the LEFT channel only goes in
             # and the output is duplicated to every channel
             # (src/webrtc.c:410-483)
@@ -316,7 +363,11 @@ def _tree_zip(fn, a, b) -> None:
 
 
 def _leaf(x, device) -> torch.Tensor:
+    """float -> float32, uint32 -> int64 (the port's uint32 carrier), other
+    integers -> int32."""
     arr = np.array(x)
+    if arr.dtype == np.uint32:
+        return torch.from_numpy(arr.astype(np.int64)).to(device)
     t = torch.from_numpy(arr)
     t = t.to(F32) if t.is_floating_point() else t.to(I32)
     return t.to(device)
@@ -332,10 +383,16 @@ def state_from_numpy(tree, device=None) -> ChainState:
     Fields match by name, so every geometry and both arithmetic modes are
     taken (the leaves' shapes carry the geometry; the mode changes no
     leaf); so are both AEC layouts (the exact-layout AecEngState and the
-    kernel layout with its state dict)."""
+    kernel layout with its state dict), the AECM state and the NSX state
+    (whose uint32 leaves become the port's int64)."""
     device = resolve_device(device)
     aec = tree.aec
-    if hasattr(aec, "dev"):
+    if hasattr(aec, "core"):
+        port_aec = aecm_step.AecmEngState(
+            core={k: _leaf(v, device) for k, v in aec.core.items()},
+            **{f: _leaf(getattr(aec, f), device)
+               for f in aecm_step.AecmEngState._fields if f != "core"})
+    elif hasattr(aec, "dev"):
         port_aec = aec_step.AecEngState(
             dev=_tuple_from(AecDev, aec.dev, device),
             **{f: _leaf(getattr(aec, f), device)
@@ -348,7 +405,8 @@ def state_from_numpy(tree, device=None) -> ChainState:
             p={k: _leaf(aec.p[k], device)
                for k in aec_package.STATE_FIELDS})
     return ChainState(
-        ns=_tuple_from(ns_mod.NsState, tree.ns, device),
+        ns=_tuple_from(nsx_mod.NsxState if hasattr(tree.ns, "min_norm")
+                       else ns_mod.NsState, tree.ns, device),
         aec=port_aec,
         agc=_tuple_from(agc_mod.AgcState, tree.agc, device),
         vad=_tuple_from(vad_mod.VadState, tree.vad, device),

@@ -3,9 +3,9 @@
 Port of `wmix_tpu/engine/checkpoint.py`: a snapshot carries the device
 state of a `RecordChain` (NS quantile trackers, AEC partitions and filter,
 AGC capacitors, VAD GMM, the play-FIFO ring) plus the host cursors (the
-AecPlanner's ring positions, start-up state machine and comfort-noise
-seed, the chain's FIFO slot counter), so a restarted server resumes every
-stream mid-stream.
+AecPlanner's or AecmPlanner's ring positions, start-up state machine and
+comfort-noise seed, the chain's FIFO slot counter), so a restarted server
+resumes every stream mid-stream.
 
 Round trip (tests/test_torch_checkpoint.py): a chain restored from a
 snapshot produces the same output stream, bit for bit, as one that never
@@ -18,13 +18,17 @@ file.  Leaves are in the order `jax.tree_util.tree_leaves` gives them
 (NamedTuple fields in order, dict keys sorted), so a snapshot that
 `wmix_tpu.engine.checkpoint.snapshot` made of a 16 kHz fast-mode chain
 restores into the port: "pallas" in a header names the kernel layout, the
-port's `PackageAecState`.
+port's `PackageAecState`, and "aecm" the AECM backend's `AecmEngState`.
+The port's uint32 leaves (NSX's, held in int64) are written as uint32, as
+the reference writes them, and read back into int64.
 
 The header carries the geometry (`batch`, `freq`, `chn`, `interval_ms`,
 `aec_interval_ms`, `part_cap`, `flags`, the backends) and `restore` holds
 each against the target chain; `interval_ms` and `aec_interval_ms` are the
-port's additions (a header without them, as `wmix_tpu` writes it, is read
-as 20 and 400, and the play FIFO's shape is checked in any case).
+port's additions, checked where present (a header without them, as
+`wmix_tpu` writes it, leaves them to the play FIFO's shape,
+[B, aec_interval_ms // interval_ms + 2, pkg_len * chn], which is checked in
+any case).
 
 Arithmetic modes.  The header also records the mode the snapshot was
 taken in (`exact`), for the reader; the reference records none and checks
@@ -43,14 +47,10 @@ import json
 import numpy as np
 import torch
 
-from wmix_tpu_torch.engine import aec_package, aec_step
-from wmix_tpu_torch.engine.aec_plan import AecPlanner, _AbsRing
+from wmix_tpu_torch.engine import aec_package, aec_step, aecm_step
+from wmix_tpu_torch.engine.aec_plan import _AbsRing
 
-_NOT_PORTED = ("the integer NSX+AECM chain is not ported yet "
-               "(ROADMAP item 9)")
-
-
-def _planner_state(p: AecPlanner) -> dict:
+def _planner_state(p) -> dict:
     out = {}
     for k, v in vars(p).items():
         if isinstance(v, _AbsRing):
@@ -63,7 +63,7 @@ def _planner_state(p: AecPlanner) -> dict:
     return out
 
 
-def _restore_planner(p: AecPlanner, snap: dict) -> None:
+def _restore_planner(p, snap: dict) -> None:
     # whitelist: only fields the live planner already has, with matching
     # kinds; a snapshot header is untrusted input
     live = vars(p)
@@ -86,11 +86,20 @@ def _restore_planner(p: AecPlanner, snap: dict) -> None:
 
 
 def _aec_layout(chain) -> str:
-    """"pallas" for the kernel layout (the name `wmix_tpu` writes), "jax"
-    for the exact ring layout."""
+    """"pallas" for the kernel layout (the name `wmix_tpu` writes), "aecm"
+    for the AECM backend, "jax" for the exact ring layout."""
     if isinstance(chain.state.aec, aec_package.PackageAecState):
         return "pallas"
+    if isinstance(chain.state.aec, aecm_step.AecmEngState):
+        return "aecm"
     return "jax"
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A leaf as the reference stores it: int64 leaves are the port's
+    uint32 carriers."""
+    arr = x.detach().cpu().numpy()
+    return arr.astype(np.uint32) if arr.dtype == np.int64 else arr
 
 
 def _leaves(tree) -> list:
@@ -135,11 +144,10 @@ def snapshot(chain) -> bytes:
         # steady-state snapshot restores into a fresh chain, whose layout
         # is the exact one
         "aec_layout": _aec_layout(chain),
-        "ns_backend": "ns",
+        "ns_backend": chain.ns_backend,
     }
     buf = io.BytesIO()
-    arrays = {f"leaf_{i}": x.detach().cpu().numpy()
-              for i, x in enumerate(leaves)}
+    arrays = {f"leaf_{i}": _to_numpy(x) for i, x in enumerate(leaves)}
     arrays["header"] = np.frombuffer(
         json.dumps(header).encode(), np.uint8)
     np.savez(buf, **arrays)
@@ -156,35 +164,40 @@ def restore(chain, data: bytes) -> None:
 
     if header.get("chn", 1) != chain.chn:
         raise ValueError("chn mismatch")
-    for key, default in (("batch", None), ("freq", None),
-                         ("part_cap", None), ("interval_ms", 20),
-                         ("aec_interval_ms", 400)):
-        if header.get(key, default) != getattr(chain, key):
-            raise ValueError(f"{key} mismatch: snapshot "
-                             f"{header.get(key, default)} != chain "
+    for key in ("batch", "freq", "part_cap", "interval_ms",
+                "aec_interval_ms"):
+        want = header.get(key) if key in ("batch", "freq", "part_cap") \
+            else header.get(key, getattr(chain, key))
+        if want != getattr(chain, key):
+            raise ValueError(f"{key} mismatch: snapshot {want} != chain "
                              f"{getattr(chain, key)}")
     if tuple(header["flags"]) != tuple(chain.flags):
         raise ValueError("flags mismatch")
     want_ns = header.get("ns_backend", "ns")
-    if want_ns != "ns":
-        raise ValueError(f"snapshot holds a {want_ns!r} NS-backend state; "
-                         + _NOT_PORTED)
+    if want_ns != chain.ns_backend:
+        raise ValueError(
+            f"snapshot holds a {want_ns!r} NS-backend state; construct "
+            f"the target RecordChain with ns_backend={want_ns!r}")
 
     # bring the chain's AEC state into the snapshot's layout before the
     # leaves are matched: a fresh chain holds the exact layout, a snapshot
     # taken in steady state the kernel layout
     want = header.get("aec_layout", "jax")
-    if want == "aecm":
-        raise ValueError("snapshot holds an AECM-backend state; "
-                         + _NOT_PORTED)
-    if want not in ("jax", "pallas"):
+    have = _aec_layout(chain)
+    if want == "aecm" and have != "aecm":
+        raise ValueError("snapshot holds an AECM-backend state; construct "
+                         "the target RecordChain with aec_backend='aecm'")
+    if have == "aecm" and want != "aecm":
+        raise ValueError("snapshot holds a float-AEC state; construct the "
+                         "target RecordChain with aec_backend='aec'")
+    if want not in ("jax", "pallas", "aecm"):
         raise ValueError(f"unknown aec_layout {want!r} in snapshot")
     if want == "pallas" and not chain.fast:
         raise ValueError("snapshot holds the kernel-layout AEC state of a "
                          "fast-mode chain; an exact-mode chain keeps the "
                          "ring layout and cannot take it")
     state = chain.state
-    if want != _aec_layout(chain):
+    if want != have:
         aec = (aec_package.init_chain_aec(chain.batch, chain.part_cap,
                                           chain.device)
                if want == "pallas"

@@ -349,6 +349,14 @@ def main(argv=None) -> None:
     for mod in ("ns", "aec", "agc", "vad"):
         ap.add_argument(f"--no-{mod}", action="store_true",
                         help=f"disable {mod.upper()} in the chain")
+    ap.add_argument("--aec-backend", choices=("aec", "aecm"),
+                    default="aec",
+                    help="full float AEC or the fixed-point AECM "
+                         "(src/webrtc.c:172-191 build switch)")
+    ap.add_argument("--ns-backend", choices=("ns", "nsx"),
+                    default="ns",
+                    help="float NS or the fixed-point NSX "
+                         "(MAKE_WEBRTC_NSX build switch)")
     args = ap.parse_args(argv)
     addr = args.socket
     if ":" in addr and not addr.startswith("/"):
@@ -360,6 +368,8 @@ def main(argv=None) -> None:
                      aec_enable=not args.no_aec,
                      agc_enable=not args.no_agc,
                      vad_enable=not args.no_vad,
+                     aec_backend=args.aec_backend,
+                     ns_backend=args.ns_backend,
                      device=args.device)
     # Before clients are admitted: the first steady package is the fifth
     # tick, and that is where the AEC kernel would otherwise be compiled,
@@ -367,8 +377,9 @@ def main(argv=None) -> None:
     # program here.
     t0 = time.time()
     chain = d.server.chain
-    if chain.flags[1] and chain.device.type == "cuda" and chain.fast \
-            and chain.freq == 16000:
+    if chain.flags[1] and chain.aec_backend == "aec" and \
+            chain.device.type == "cuda" and chain.fast and \
+            chain.freq == 16000:
         from wmix_tpu_torch import kernels
         print("wmix-tpu-torch-stream: building the AEC kernel...",
               flush=True)
@@ -378,7 +389,8 @@ def main(argv=None) -> None:
           flush=True)
     d.start()
     print(f"wmix-tpu-torch-stream: serving {args.capacity} slots @ "
-          f"{args.freq} Hz on {args.socket} ({chain.device})", flush=True)
+          f"{args.freq} Hz on {args.socket} ({chain.device}, "
+          f"{chain.aec_backend} + {chain.ns_backend})", flush=True)
     try:
         while True:
             time.sleep(args.stats_every)

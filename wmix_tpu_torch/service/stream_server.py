@@ -88,7 +88,8 @@ class StreamServer:
     rate the chain takes (8, 16 or 32 kHz): its queues and the wire
     protocol behind it carry `freq // 1000 * 20` samples per package.
     `chain_kw` passes the chain's other options through (enable flags,
-    `agc_gain_db`, `part_cap`, `aec_interval_ms`)."""
+    `agc_gain_db`, `part_cap`, `aec_interval_ms`, and the backends
+    `aec_backend="aecm"` and `ns_backend="nsx"` of the integer chain)."""
 
     def __init__(self, capacity: int, freq: int, max_depth: int = 12,
                  **chain_kw):

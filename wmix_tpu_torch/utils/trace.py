@@ -12,6 +12,10 @@ printf-level (wmix debug flag); here it is structured:
 - `StepTimer`: cheap per-step wall-time accounting for a real-time loop:
   records step latencies and summarizes p50/p95/max against the budget.
   The stream daemon's pump runs under one.
+- `OpCounter`: counts the aten operations run inside it (a
+  `TorchDispatchMode`), all of them and those that are not views; on the
+  card an operation that is not a view is about one kernel launch, so the
+  count says what an eager package costs the host.
 
 Env var:
   WMIX_TRACE_STEPS=1     `steps_enabled()`: step accounting asked for
@@ -23,6 +27,31 @@ import os
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+
+class OpCounter:
+    """Counts the aten operations dispatched inside `with OpCounter() as
+    c:`; `c.ops` all of them, `c.launching` those that are not views."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counter = self
+        self.ops = self.launching = 0
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.ops += 1
+                if not getattr(func, "is_view", False):
+                    counter.launching += 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        return False
 
 
 def steps_enabled() -> bool:

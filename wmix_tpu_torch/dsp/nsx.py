@@ -56,11 +56,10 @@ I64 = torch.int64
 M = U32_MASK
 I16_MAX = 32767
 
+# complex_fft.c; the inverse's CIFFTSFT and CIFFTRND equal these
 CFFTSFT = 14
 CFFTRND = 1
 CFFTRND2 = 16384
-CIFFTSFT = 14
-CIFFTRND = 1
 
 
 # ------------------------------------------------------------- helpers
@@ -155,7 +154,7 @@ def _butterflies(re, im, order: int, inverse: bool):
             shift = (mx > 13573).to(I32) + (mx > 27146).to(I32)
             scale = scale + shift
             rnd = (_full(shift, 8192) << shift)[..., None]
-            sft = (shift + CIFFTSFT)[..., None]
+            sft = (shift + CFFTSFT)[..., None]
         else:
             rnd, sft = CFFTRND2, 1 + CFFTSFT
         wr, wi = _stage_twiddles(l, k, inverse, dev)

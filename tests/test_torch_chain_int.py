@@ -18,6 +18,8 @@ A test marked `slow` runs `wmix_tpu` again and holds the files to it.
 One file also holds a snapshot that `wmix_tpu` took halfway: restored
 into the port, the chain runs on to the stored outputs and final state.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -192,7 +194,6 @@ def test_stream_server_slot_equals_the_chain(monkeypatch):
 def test_daemon_main_serves_an_integer_chain_client(tmp_path):
     """`python -m wmix_tpu_torch.service.stream_daemon --aec-backend aecm
     --ns-backend nsx --device cpu` serves a socket client until SIGINT."""
-    import os
     import signal
     import subprocess
     import sys
@@ -230,8 +231,7 @@ def test_daemon_main_serves_an_integer_chain_client(tmp_path):
 
 
 def test_reference_files_are_small():
-    total = sum(__import__("os").path.getsize(ref.path_of(c))
-                for c in ref.INT_CASES)
+    total = sum(os.path.getsize(ref.path_of(c)) for c in ref.INT_CASES)
     assert total < 400_000, total
 
 

@@ -69,8 +69,27 @@ non-zero and prints no result):
      every state leaf; ms per package beside phase 3's; the aten
      operations of one more package of each chain and of phase 3's chain
      (`utils.trace.OpCounter`: all, and those that are not views)
-Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9, 11,
-12 and 13, each counted from 0) and, last, {"ok": true, "device": {...}}.
+ 14. the device codec halves at full width: BatchedSynth(4096), 8 stereo
+     frames of seeded Q28 subband samples (ns = 36) then 4 mono frames,
+     slots reset after frames 3 and 9; BatchedFilterbank(8192) (4096
+     stereo streams) over the ten-frame window walk (every sequence, both
+     shapes, every transition) on seeded spectra, all slots at once, then
+     one tick through `frame` with three (sequence, shape, previous shape)
+     groups; the same calls on the CPU over every stream: PCM, hist,
+     phase, time_out, overlap and shape_prev equal, floats bitwise; ms per
+     frame (CUDA events, median), streams = B * frame audio / time, the
+     aten operations and bytes of one frame of each kind beside the
+     prediction from phase 3's cost per operation; no kernel launch
+ 15. the batch decoders end to end: AacBatchDecoder(128) over the stored
+     AAC-LC streams (44.1 kHz stereo with short blocks, 32 kHz mono),
+     Mp3BatchDecoder(128) over the stored Layer III frames (C front-end)
+     and Mp3BatchDecoder(8) over the stored Layer II stream (Python
+     front-end), starts staggered over the first ticks; the card's PCM of
+     every stream and frame, and the ticks streams end in, equal to the
+     CPU decoders'; ms per tick and streams = decoded audio / time; no
+     kernel launch
+Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
+11-15, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -677,8 +696,10 @@ def counted_step(chain, seed) -> dict:
     return {"ops": c.ops, "launching": c.launching}
 
 
-def phase_integer(aec_package, main_chain, main_pkg_ms, name_power) -> int:
-    """13. the integer chain (AECM + NSX) on the card against the CPU."""
+def phase_integer(aec_package, main_chain, main_pkg_ms, name_power):
+    """13. the integer chain (AECM + NSX) on the card against the CPU;
+    returns its kernel launches and the aten operations of one package of
+    phase 3's chain."""
     from wmix_tpu_torch.engine.checkpoint import _leaves
     kw = dict(aec_backend="aecm", ns_backend="nsx")
     rows, launches = {}, 0
@@ -710,9 +731,264 @@ def phase_integer(aec_package, main_chain, main_pkg_ms, name_power) -> int:
             pkg_ms=round(pkg_ms, 3),
             over_16k_mono_fast=round(pkg_ms / main_pkg_ms, 3),
             aten_ops_per_pkg=counted_step(card_chain, seed=50 + i))
+    ops3 = counted_step(main_chain, seed=52)
     phase("integer_chain", batch=B_MAIN, card=name_power,
           pkg_ms_16k_mono_fast_phase3=round(main_pkg_ms, 3),
-          aten_ops_per_pkg_phase3=counted_step(main_chain, seed=52), **rows)
+          aten_ops_per_pkg_phase3=ops3, **rows)
+    return launches, ops3
+
+
+# The device codec halves (phase 14) and the batch decoders (15)
+B_SYNTH, FB_SLOTS, B_DEC = 4096, 8192, 128
+MP3_FRAME_S, AAC_SAMPLES = 1152 / 44100, 1024
+# the ten-frame window walk of tests/test_aac_batch.py: (sequence, shape)
+FB_WALK = [(0, 0), (1, 0), (2, 1), (2, 1), (3, 0), (0, 0), (1, 1), (2, 0),
+           (3, 1), (0, 1)]
+# the mixed tick after the walk (every slot's previous shape is 1)
+FB_GROUPS = [(0, 0), (2, 1), (3, 1)]
+
+
+def counted(fn) -> dict:
+    """The aten operations of one call of `fn` on the card, and the bytes
+    they read and write (`utils.trace.OpCounter`)."""
+    from wmix_tpu_torch.utils.trace import OpCounter
+    torch.cuda.synchronize()
+    with OpCounter() as c:
+        fn()
+    torch.cuda.synchronize()
+    return {"ops": c.ops, "launching": c.launching, "bytes": c.bytes}
+
+
+def event_ms(fn):
+    """(result, ms) of one call of `fn` between two CUDA events."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits, so that equality is bitwise."""
+    return t.contiguous().view(torch.int32)
+
+
+def prediction(count: dict, per_op_ms: float) -> dict:
+    """The larger of the host's time for the launches (phase 3's cost per
+    operation) and the device's for the bytes at the memory rate."""
+    host = count["launching"] * per_op_ms
+    mem = count["bytes"] / PEAK_BYTES_PER_S * 1e3
+    return {"host_ms": round(host, 3), "bytes_ms": round(mem, 3),
+            "predicted_ms": round(max(host, mem), 3)}
+
+
+def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
+    """14. the device codec halves at full width, card against CPU."""
+    from wmix_tpu_torch.codecs.aac_batch import BatchedFilterbank
+    from wmix_tpu_torch.codecs.mp3_batch import BatchedSynth
+    aec_package.package_step.launches = 0
+    rng = np.random.RandomState(14)
+    frames = [(2, 36)] * 8 + [(1, 36)] * 4
+    resets = {3: np.arange(0, B_SYNTH, 7), 9: np.arange(3, B_SYNTH, 11)}
+    sbs = [rng.randint(-(1 << 28), 1 << 28, size=(B_SYNTH, 2, 36, 32))
+           .astype(np.int32) for _ in frames]
+    specs = [(rng.randn(FB_SLOTS, 1024) * 50).astype(np.float32)
+             for _ in FB_WALK]
+    tick_specs = (rng.randn(FB_SLOTS, 1024) * 50).astype(np.float32)
+    res, secs = {}, {}
+    synth_ms, fb_ms = [], []
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        card = d == "cuda"
+        synth = BatchedSynth(B_SYNTH) if card else \
+            BatchedSynth(B_SYNTH, device="cpu")
+        if synth.device.type != d:
+            raise AssertionError("phase 14: BatchedSynth's default device "
+                                 "is not the card")
+        pcm = []
+        for f, ((nch, ns), sb) in enumerate(zip(frames, sbs)):
+            if f in resets:
+                synth.reset(resets[f])
+            x = torch.from_numpy(sb).to(synth.device)
+            if card:
+                out, ms = event_ms(lambda: synth.frame(x, nch, ns))
+                synth_ms.append((nch, ms))
+            else:
+                out = synth.frame(x, nch, ns)
+            pcm.append(out.cpu())
+        fb = BatchedFilterbank(FB_SLOTS) if card else \
+            BatchedFilterbank(FB_SLOTS, device="cpu")
+        idx = np.arange(FB_SLOTS)
+        walk = []
+        for (seq, shape), sp in zip(FB_WALK, specs):
+            x = torch.from_numpy(sp).to(fb.device)
+            if card:
+                out, ms = event_ms(lambda: fb.frame_stacked(idx, seq, shape,
+                                                            x))
+                fb_ms.append((seq, ms))
+            else:
+                out = fb.frame_stacked(idx, seq, shape, x)
+            walk.append(out.cpu())
+        jobs = [(s, *FB_GROUPS[s % 3], tick_specs[s])
+                for s in range(FB_SLOTS)]
+        if card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tick = fb.frame(jobs)
+        tick_ms = (time.perf_counter() - t1) * 1e3
+        res[d] = {"pcm": torch.stack(pcm[:8]), "pcm_mono": torch.stack(
+                      pcm[8:]), "hist": synth.hist.cpu(),
+                  "phase": synth.phase.cpu(),
+                  "time_out": bits(torch.stack(walk)),
+                  "tick_time_out": bits(torch.from_numpy(
+                      np.stack([tick[s] for s in range(FB_SLOTS)]))),
+                  "overlap": bits(fb.overlap.cpu()),
+                  "shape_prev": fb.shape_prev.cpu()}
+        if card:
+            card_synth, card_fb, card_tick_ms = synth, fb, tick_ms
+        secs[d] = time.perf_counter() - t0
+    for k, v in res["cuda"].items():
+        check_equal(f"phase 14 {k}, card vs cpu", v, res["cpu"][k])
+    if not res["cuda"]["pcm"].any() or not res["cuda"]["pcm_mono"].any() or \
+            not bool((bits(card_fb.overlap) != 0).any()):
+        raise AssertionError("phase 14: silent output")
+    # one more frame of each kind, counted
+    x = torch.from_numpy(sbs[0]).cuda()
+    ops = {"synth_stereo": counted(lambda: card_synth.frame(x, 2, 36)),
+           "synth_mono": counted(lambda: card_synth.frame(x, 1, 36))}
+    x = torch.from_numpy(specs[0]).cuda()
+    fresh = BatchedFilterbank(FB_SLOTS)     # every slot's previous shape 0
+    for seq, name in enumerate(("long", "start", "short", "stop")):
+        ops[f"fb_{name}"] = counted(lambda: fresh.frame_stacked(idx, seq, 0,
+                                                                x))
+    ops["fb_mixed_tick"] = counted(lambda: card_fb.frame(jobs))
+    launches = aec_package.package_step.launches
+    if launches:
+        raise AssertionError(f"phase 14: {launches} AEC kernel launches")
+    stereo = [ms for nch, ms in synth_ms[1:] if nch == 2]
+    mono = [ms for nch, ms in synth_ms if nch == 1]
+    fb_by_seq = {seq: round(float(np.median([ms for s, ms in fb_ms
+                                             if s == seq])), 3)
+                 for seq in range(4)}
+    fb_med = float(np.median([ms for _, ms in fb_ms[1:]]))
+    st_med = float(np.median(stereo))
+    phase("codec_device", card=name_power, synth_batch=B_SYNTH,
+          fb_slots=FB_SLOTS, card_equals_cpu=sorted(res["cuda"]),
+          cpu_streams_compared={"synth": B_SYNTH, "fb_slots": FB_SLOTS},
+          seconds={d: round(v, 3) for d, v in secs.items()},
+          synth_stereo_ms=round(st_med, 3),
+          synth_mono_ms=round(float(np.median(mono)), 3),
+          synth_ms_each=[round(ms, 3) for _, ms in synth_ms],
+          synth_streams=round(B_SYNTH * MP3_FRAME_S / (st_med / 1e3), 1),
+          fb_ms=round(fb_med, 3), fb_ms_by_sequence=fb_by_seq,
+          fb_ms_each=[round(ms, 3) for _, ms in fb_ms],
+          fb_streams=round(FB_SLOTS // 2 * AAC_SAMPLES / 44100 /
+                           (fb_med / 1e3), 1),
+          fb_mixed_tick_ms_wall=round(card_tick_ms, 3),
+          aten_ops_per_frame=ops,
+          state_bytes_per_frame={
+              "synth_stereo": B_SYNTH * (2 * 36 * 32 * 4 + 2 * 2 * 2 * 16 *
+                                         16 * 4 + 2 * 4 + 2 * 36 * 32 * 2),
+              "fb": FB_SLOTS * 1024 * 4 * 4},
+          per_op_ms_phase3=round(per_op_ms, 5),
+          predicted={k: prediction(v, per_op_ms) for k, v in ops.items()},
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+          kernel_launches=launches)
+    return launches
+
+
+def decode_all(make, streams, starts, frame_s):
+    """Tick a batch decoder until every stream has ended: stream b starts
+    at tick starts[b].  Returns ({stream: [PCM of every frame]}, the ticks'
+    finished lists, ms per tick, audio seconds decoded)."""
+    dec = make()
+    got = {b: [] for b in range(len(streams))}
+    ended, dones, tick_ms = set(), [], []
+    audio_s = 0.0
+    t = 0
+    while len(ended) < len(streams):
+        for b, s in enumerate(starts):
+            if t == s:
+                dec.start(b, streams[b])
+        t0 = time.perf_counter()
+        pcms, done = dec.tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        if isinstance(pcms, dict):           # AAC: the emitted frames
+            items = pcms.items()
+        else:                                # MP3: [B, nch, n] or None
+            items = [] if pcms is None else [
+                (b, pcms[b]) for b in range(len(streams))
+                if b not in ended and b not in done and t >= starts[b]]
+        for b, pcm in items:
+            got[b].append(np.asarray(pcm).copy())
+            audio_s += frame_s[b]
+        ended.update(done)
+        dones.append(sorted(done))
+        t += 1
+        if t > 10_000:
+            raise AssertionError("phase 15: a decoder never ended")
+    return got, dones, tick_ms, audio_s
+
+
+def phase_codec_decoders(aec_package, name_power) -> int:
+    """15. the batch decoders end to end on the card against the CPU."""
+    from wmix_tpu_torch.codecs.aac_batch import AacBatchDecoder
+    from wmix_tpu_torch.codecs.mp3_batch import Mp3BatchDecoder
+    data_dir = os.path.join(REPO, "tests", "data")
+
+    def stream(name):
+        with open(os.path.join(data_dir, "torch_codec_" + name), "rb") as f:
+            return f.read()
+
+    aec_package.package_step.launches = 0
+    aac = [stream("aac_44k_stereo.aac"), stream("aac_32k_mono.aac")]
+    cases = {
+        "aac": (AacBatchDecoder, B_DEC, [aac[b % 2] for b in range(B_DEC)],
+                [AAC_SAMPLES / (44100, 32000)[b % 2] for b in range(B_DEC)],
+                [b % 8 for b in range(B_DEC)]),
+        "mp3_l3": (Mp3BatchDecoder, B_DEC, [stream("mp3_l3.mp3")] * B_DEC,
+                   [MP3_FRAME_S] * B_DEC, [b % 8 for b in range(B_DEC)]),
+        "mp3_l2": (Mp3BatchDecoder, 8, [stream("mp3_l2.mp3")] * 8,
+                   [MP3_FRAME_S] * 8, [b % 4 for b in range(8)]),
+    }
+    rows = {}
+    for name, (cls, B, streams, frame_s, starts) in cases.items():
+        run = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            make = (lambda: cls(B)) if d == "cuda" else \
+                (lambda: cls(B, device="cpu"))
+            run[d] = decode_all(make, streams, starts, frame_s)
+            run[d] += (time.perf_counter() - t0,)
+        (got, dones, tick_ms, audio_s, secs), want = run["cuda"], run["cpu"]
+        if dones != want[1]:
+            raise AssertionError(f"phase 15 {name}: streams ended in "
+                                 "other ticks on the card")
+        frames = 0
+        for b in range(B):
+            if len(got[b]) != len(want[0][b]) or not got[b]:
+                raise AssertionError(f"phase 15 {name} stream {b}: "
+                                     f"{len(got[b])} frames on the card, "
+                                     f"{len(want[0][b])} on the cpu")
+            for i, (g, w) in enumerate(zip(got[b], want[0][b])):
+                check_equal(f"phase 15 {name} stream {b} frame {i}", g, w)
+            frames += len(got[b])
+        if not any(g.any() for g in got[0]):
+            raise AssertionError(f"phase 15 {name}: silent output")
+        rows[name] = dict(
+            batch=B, ticks=len(tick_ms), frames_equal=frames,
+            tick_ms_median=round(float(np.median(tick_ms)), 3),
+            tick_ms_max=round(max(tick_ms), 3),
+            streams=round(audio_s / (sum(tick_ms) / 1e3), 1),
+            seconds={"cuda": round(secs, 3), "cpu": round(want[4], 3)})
+    launches = aec_package.package_step.launches
+    if launches:
+        raise AssertionError(f"phase 15: {launches} AEC kernel launches")
+    phase("codec_decoders", card=name_power, card_equals_cpu=True,
+          kernel_launches=launches, **rows)
     return launches
 
 
@@ -901,8 +1177,12 @@ def main() -> int:
                                     name_power).items():
         by_phase[f"11_{case}"] = n
     by_phase["12"] = phase_exact(aec_package, pkg_ms_main, name_power)
-    by_phase["13"] = phase_integer(aec_package, chain, pkg_ms_main,
-                                   name_power)
+    by_phase["13"], ops3 = phase_integer(aec_package, chain, pkg_ms_main,
+                                         name_power)
+    # the host's cost of one launching operation, from phase 3's package
+    per_op_ms = pkg_ms_main / ops3["launching"]
+    by_phase["14"] = phase_codec_device(aec_package, per_op_ms, name_power)
+    by_phase["15"] = phase_codec_decoders(aec_package, name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{

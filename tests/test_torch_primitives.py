@@ -194,7 +194,13 @@ def test_import_is_jax_free():
             "'kernels', 'staging', 'config', 'ops.g711', 'ops.mixer', "
             "'service.stream_server', 'service.stream_daemon', "
             "'utils.trace', 'dsp.nsx', 'dsp.aecm', 'engine.aecm_step', "
-            "'dsp._nsx_tables', 'dsp._aecm_tables']\n"
+            "'dsp._nsx_tables', 'dsp._aecm_tables', 'codecs.mp3_batch', "
+            "'codecs.aac_batch', 'codecs._mp3_dct32', 'codecs._mp3_tables', "
+            "'codecs._aac_tables', 'codecs._sbr_tables', "
+            "'codecs._mp3_l12_tables', 'codecs.mp3', 'codecs.aac', "
+            "'codecs.sbr', 'codecs.ps', 'codecs.adts', 'codecs.mp3fe', "
+            "'codecs.aacfe', 'native', 'native.gen_mp3fe_tables', "
+            "'native.gen_aacfe_tables']\n"
             "missing = [w for w in want "
             "if 'wmix_tpu_torch.' + w not in sys.modules]\n"
             "assert not missing, missing\n"
@@ -227,6 +233,10 @@ DEVICE_ENTRY_POINTS = [
     ("engine.aecm_step", "AecmBatch"),
     ("engine.mixbus", "MixBus"),
     ("staging", "PinnedRing"),
+    ("codecs.mp3_batch", "BatchedSynth"),
+    ("codecs.mp3_batch", "Mp3BatchDecoder"),
+    ("codecs.aac_batch", "BatchedFilterbank"),
+    ("codecs.aac_batch", "AacBatchDecoder"),
 ]
 
 
@@ -242,6 +252,7 @@ def test_device_defaults_to_the_card(module, name):
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
+    from wmix_tpu_torch.codecs import aac_batch, mp3_batch
     from wmix_tpu_torch.device import resolve_device
     from wmix_tpu_torch.dsp import agc, vad
     from wmix_tpu_torch.engine.aec_package import AecBatchPackage
@@ -251,6 +262,10 @@ def test_default_device_raises_without_a_card(monkeypatch):
                   lambda: RecordChain(2, 16000, device="cuda"),
                   lambda: AecBatchPackage(2, 16000),
                   lambda: agc.init_state(2), lambda: vad.init_state(2),
+                  lambda: mp3_batch.BatchedSynth(2),
+                  lambda: mp3_batch.Mp3BatchDecoder(2),
+                  lambda: aac_batch.BatchedFilterbank(4),
+                  lambda: aac_batch.AacBatchDecoder(2),
                   resolve_device):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

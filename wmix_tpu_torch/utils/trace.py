@@ -15,7 +15,9 @@ printf-level (wmix debug flag); here it is structured:
 - `OpCounter`: counts the aten operations run inside it (a
   `TorchDispatchMode`), all of them and those that are not views; on the
   card an operation that is not a view is about one kernel launch, so the
-  count says what an eager package costs the host.
+  count says what an eager package costs the host.  It also sums the
+  bytes those operations read and write (each tensor argument and result
+  once), what the same eager run moves through device memory.
 
 Env var:
   WMIX_TRACE_STEPS=1     `steps_enabled()`: step accounting asked for
@@ -31,19 +33,30 @@ from typing import List, Optional
 
 class OpCounter:
     """Counts the aten operations dispatched inside `with OpCounter() as
-    c:`; `c.ops` all of them, `c.launching` those that are not views."""
+    c:`; `c.ops` all of them, `c.launching` those that are not views, and
+    `c.bytes` the bytes of the tensor arguments and results of the latter."""
 
     def __enter__(self):
+        import torch
         from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
         counter = self
-        self.ops = self.launching = 0
+        self.ops = self.launching = self.bytes = 0
+
+        def nbytes(tree) -> int:
+            return sum(t.numel() * t.element_size()
+                       for t in tree_leaves(tree)
+                       if isinstance(t, torch.Tensor))
 
         class _Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
                 counter.ops += 1
+                out = func(*args, **kwargs)
                 if not getattr(func, "is_view", False):
                     counter.launching += 1
-                return func(*args, **(kwargs or {}))
+                    counter.bytes += nbytes((args, kwargs)) + nbytes(out)
+                return out
 
         self._mode = _Mode()
         self._mode.__enter__()

@@ -79,7 +79,8 @@ non-zero and prints no result):
      phase, time_out, overlap and shape_prev equal, floats bitwise; ms per
      frame (CUDA events, median), streams = B * frame audio / time, the
      aten operations and bytes of one frame of each kind beside the
-     prediction from phase 3's cost per operation; no kernel launch
+     prediction from phase 3's cost per operation, the device's busy time
+     in one frame (torch.profiler); no kernel launch
  15. the batch decoders end to end: AacBatchDecoder(128) over the stored
      AAC-LC streams (44.1 kHz stereo with short blocks, 32 kHz mono),
      Mp3BatchDecoder(128) over the stored Layer III frames (C front-end)
@@ -682,18 +683,13 @@ def phase_exact(aec_package, main_pkg_ms, name_power) -> int:
 
 def counted_step(chain, seed) -> dict:
     """The aten operations of one package of `chain` on its device."""
-    from wmix_tpu_torch.utils.trace import OpCounter
     n = chain.pkg_len * chain.chn
     rng = np.random.RandomState(seed)
     mic = torch.from_numpy((rng.randn(chain.batch, n) * 3000).astype(
         np.int16)).cuda()
     play = torch.from_numpy((rng.randn(chain.batch, n) * 5000).astype(
         np.int16)).cuda()
-    torch.cuda.synchronize()
-    with OpCounter() as c:
-        chain.step(mic, play)
-    torch.cuda.synchronize()
-    return {"ops": c.ops, "launching": c.launching}
+    return counted(lambda: chain.step(mic, play))
 
 
 def phase_integer(aec_package, main_chain, main_pkg_ms, name_power):
@@ -759,16 +755,19 @@ def counted(fn) -> dict:
     return {"ops": c.ops, "launching": c.launching, "bytes": c.bytes}
 
 
-def event_ms(fn):
-    """(result, ms) of one call of `fn` between two CUDA events."""
+def device_busy_ms(fn):
+    """The device time of one call of `fn` (the sum of its kernels' self
+    time in a `torch.profiler` trace), or None where the trace shows
+    none."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    b.synchronize()
-    return out, a.elapsed_time(b)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages())
+    return round(us / 1e3, 3) if us else None
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -790,6 +789,7 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
     from wmix_tpu_torch.codecs.aac_batch import BatchedFilterbank
     from wmix_tpu_torch.codecs.mp3_batch import BatchedSynth
     aec_package.package_step.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.RandomState(14)
     frames = [(2, 36)] * 8 + [(1, 36)] * 4
     resets = {3: np.arange(0, B_SYNTH, 7), 9: np.arange(3, B_SYNTH, 11)}
@@ -813,25 +813,32 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
             if f in resets:
                 synth.reset(resets[f])
             x = torch.from_numpy(sb).to(synth.device)
+            out = []
+
+            def run():
+                out.append(synth.frame(x, nch, ns))
+
             if card:
-                out, ms = event_ms(lambda: synth.frame(x, nch, ns))
-                synth_ms.append((nch, ms))
+                synth_ms.append((nch, cuda_ms(run)))
             else:
-                out = synth.frame(x, nch, ns)
-            pcm.append(out.cpu())
+                run()
+            pcm.append(out[0].cpu())
         fb = BatchedFilterbank(FB_SLOTS) if card else \
             BatchedFilterbank(FB_SLOTS, device="cpu")
         idx = np.arange(FB_SLOTS)
         walk = []
         for (seq, shape), sp in zip(FB_WALK, specs):
             x = torch.from_numpy(sp).to(fb.device)
+            out = []
+
+            def run():
+                out.append(fb.frame_stacked(idx, seq, shape, x))
+
             if card:
-                out, ms = event_ms(lambda: fb.frame_stacked(idx, seq, shape,
-                                                            x))
-                fb_ms.append((seq, ms))
+                fb_ms.append((seq, cuda_ms(run)))
             else:
-                out = fb.frame_stacked(idx, seq, shape, x)
-            walk.append(out.cpu())
+                run()
+            walk.append(out[0].cpu())
         jobs = [(s, *FB_GROUPS[s % 3], tick_specs[s])
                 for s in range(FB_SLOTS)]
         if card:
@@ -865,6 +872,13 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
         ops[f"fb_{name}"] = counted(lambda: fresh.frame_stacked(idx, seq, 0,
                                                                 x))
     ops["fb_mixed_tick"] = counted(lambda: card_fb.frame(jobs))
+    x = torch.from_numpy(sbs[0]).cuda()
+    busy = {"synth_stereo": device_busy_ms(
+        lambda: card_synth.frame(x, 2, 36))}
+    x = torch.from_numpy(specs[0]).cuda()
+    for seq, name in ((0, "long"), (2, "short")):
+        busy[f"fb_{name}"] = device_busy_ms(
+            lambda: fresh.frame_stacked(idx, seq, 0, x))
     launches = aec_package.package_step.launches
     if launches:
         raise AssertionError(f"phase 14: {launches} AEC kernel launches")
@@ -888,7 +902,7 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
           fb_streams=round(FB_SLOTS // 2 * AAC_SAMPLES / 44100 /
                            (fb_med / 1e3), 1),
           fb_mixed_tick_ms_wall=round(card_tick_ms, 3),
-          aten_ops_per_frame=ops,
+          aten_ops_per_frame=ops, device_busy_ms_per_frame=busy,
           state_bytes_per_frame={
               "synth_stereo": B_SYNTH * (2 * 36 * 32 * 4 + 2 * 2 * 2 * 16 *
                                          16 * 4 + 2 * 4 + 2 * 36 * 32 * 2),

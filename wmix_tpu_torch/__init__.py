@@ -9,8 +9,9 @@ kernel's plain PyTorch version stands in for it.
 
 Around the chain: checkpoint/resume of its state, the serving layer (a
 B-slot `StreamServer` and its socket front door `StreamDaemon`, which move
-packages between host and card through pinned staging buffers), and the
-play half of the engine, the integer mix bus with G.711.
+packages between host and card through pinned staging buffers), the
+play half of the engine, the integer mix bus with G.711, and the batched
+MP3 and AAC decoders (host bitstream front-ends, device transforms).
 
 Layout mirrors `wmix_tpu`:
   dsp      — intops, floatops, ns, agc, vad, aec (per-block AEC math),
@@ -24,6 +25,11 @@ Layout mirrors `wmix_tpu`:
              checkpoint (snapshot/restore), mixbus (MixBus, TaskCursor)
   service  — stream_server (StreamServer), stream_daemon (StreamDaemon,
              StreamSocketClient, the `wmix-tpu-torch-stream` entry point)
+  codecs   — mp3_batch (BatchedSynth, Mp3BatchDecoder), aac_batch
+             (BatchedFilterbank, AacBatchDecoder), and copies of the host
+             decoders (mp3, aac, sbr, ps, adts) with their tables and the
+             ctypes wrappers of the C front-ends (mp3fe, aacfe)
+  native   — the C front-ends' sources and their build (system compiler)
   utils    — trace (StepTimer, OpCounter, torch.profiler wrappers)
   config   — EngineConfig
   staging  — the pinned host buffer ring behind every per-tick copy

@@ -314,10 +314,9 @@ class BatchedFilterbank:
         self._prev[:] = np.asarray(shape_prev, np.int32)
         self.shape_prev.copy_(torch.from_numpy(self._prev.copy()))
 
-    def _run(self, idx: np.ndarray, seq: int, shape: int, prev: int,
-             specs) -> torch.Tensor:
-        i = self._index(idx)
-        freq = torch.as_tensor(specs).to(self.device, F32)
+    def _run(self, idx: np.ndarray, i: torch.Tensor, seq: int, shape: int,
+             prev: int, freq: torch.Tensor) -> torch.Tensor:
+        """One group: slots `idx` (`i` on the device), spectra `freq`."""
         time_out, new_ov = filterbank(seq, shape, prev, freq,
                                       self.overlap.index_select(0, i),
                                       self.frame_len)
@@ -335,7 +334,9 @@ class BatchedFilterbank:
         prev = int(self._prev[idx[0]])
         if not (self._prev[idx] == prev).all():
             raise ValueError("mixed shape_prev: use frame()")
-        return self._run(idx, int(seq), int(shape), prev, specs)
+        freq = torch.as_tensor(specs).to(self.device, F32)
+        return self._run(idx, self._index(idx), int(seq), int(shape), prev,
+                         freq)
 
     def frame(self, jobs):
         """jobs: [(slot, window_sequence, window_shape, spec_f32
@@ -347,10 +348,18 @@ class BatchedFilterbank:
             key = (int(seq), int(shape), int(self._prev[slot]))
             groups.setdefault(key, []).append((slot, spec))
         out = {}
+        n = self.frame_len
         for (seq, shape, prev), members in groups.items():
             idx = np.asarray([m[0] for m in members], np.int64)
-            specs = np.stack([m[1] for m in members]).astype(np.float32)
-            t_np = self._run(idx, seq, shape, prev, specs).cpu().numpy()
+            # spectra and slots in one copy: the slot rides as one more
+            # int32 column beside the spectra's float32 bits
+            packed = np.empty((len(members), n + 1), np.int32)
+            packed[:, :n] = np.stack([m[1] for m in members]).astype(
+                np.float32).view(np.int32)
+            packed[:, n] = idx
+            dev = torch.from_numpy(packed).to(self.device)
+            t_np = self._run(idx, dev[:, n].long(), seq, shape, prev,
+                             dev[:, :n].view(F32)).cpu().numpy()
             for j, (slot, _spec) in enumerate(members):
                 out[slot] = t_np[j]
         return out

@@ -365,7 +365,7 @@ class BatchedFilterbank:
         return out
 
 
-# ---------------------------------------------------------------- driver
+# --------------------------------------------------------------- decoder
 
 class AacBatchDecoder:
     """N concurrent plain-LC AAC decodes: per-stream host front-ends (ADTS

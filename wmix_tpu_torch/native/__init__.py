@@ -34,7 +34,7 @@ def load(name: str, cflags: tuple = (), deps: tuple = ()) -> ctypes.CDLL:
                  [Path(d).stat().st_mtime for d in deps])
     if not so.exists() or so.stat().st_mtime < newest:
         cc = os.environ.get("CC", "gcc")
-        # build beside the library and rename: concurrent builders (test
+        # build beside the library and rename: concurrent builds (test
         # workers) never load a half-written file
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         subprocess.run(

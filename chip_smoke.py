@@ -80,15 +80,19 @@ non-zero and prints no result):
      frame (CUDA events, median), streams = B * frame audio / time, the
      aten operations and bytes of one frame of each kind beside the
      prediction from phase 3's cost per operation, the device's busy time
-     in one frame (torch.profiler); no kernel launch
- 15. the batch decoders end to end: AacBatchDecoder(128) over the stored
-     AAC-LC streams (44.1 kHz stereo with short blocks, 32 kHz mono),
-     Mp3BatchDecoder(128) over the stored Layer III frames (C front-end)
-     and Mp3BatchDecoder(8) over the stored Layer II stream (Python
-     front-end), starts staggered over the first ticks; the card's PCM of
+     in one frame (torch.profiler: the durations of the events on the
+     device, and their count) and the idle share it leaves; no kernel
+     launch
+ 15. the batch decoders end to end: the C front-ends must build and load;
+     AacBatchDecoder(128) over the stored AAC-LC streams (44.1 kHz stereo
+     with short blocks, 32 kHz mono), Mp3BatchDecoder(128) over the stored
+     Layer III frames (C front-end) and Mp3BatchDecoder(8) over the stored
+     Layer II stream (Python front-end), starts staggered over the first
+     ticks; the card's PCM of
      every stream and frame, and the ticks streams end in, equal to the
      CPU decoders'; ms per tick and streams = decoded audio / time; no
      kernel launch
+Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
 11-15, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
@@ -108,13 +112,17 @@ sys.path.insert(0, REPO)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+T0 = time.perf_counter()
 B_MAIN, K, CHUNKS = 4096, 25, 4
 LSB = 4
 REL = 1e-4
 
 
 def phase(name, **kv):
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    """Print a phase's line, with the seconds since the script started."""
+    print(json.dumps({"phase": name, **kv,
+                      "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def card() -> str:
@@ -755,19 +763,27 @@ def counted(fn) -> dict:
     return {"ops": c.ops, "launching": c.launching, "bytes": c.bytes}
 
 
-def device_busy_ms(fn):
-    """The device time of one call of `fn` (the sum of its kernels' self
-    time in a `torch.profiler` trace), or None where the trace shows
-    none."""
+def device_busy(fn) -> dict | None:
+    """The device's busy time in one call of `fn`: the summed durations of
+    the device's own events (kernels, copies, fills) in a `torch.profiler`
+    trace, and how many there were.  The aten operation that launched an
+    event carries its duration again in its own device totals, so only the
+    events that lie on the device are summed, as the profiler's own table
+    sums them.  None where the trace shows no device event."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages())
-    return round(us / 1e3, 3) if us else None
+    on_device = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+    if not on_device:
+        return None
+    us = sum(e.time_range.end - e.time_range.start for e in on_device)
+    return {"busy_ms": round(us / 1e3, 3), "device_events": len(on_device)}
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -873,11 +889,10 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
                                                                 x))
     ops["fb_mixed_tick"] = counted(lambda: card_fb.frame(jobs))
     x = torch.from_numpy(sbs[0]).cuda()
-    busy = {"synth_stereo": device_busy_ms(
-        lambda: card_synth.frame(x, 2, 36))}
+    busy = {"synth_stereo": device_busy(lambda: card_synth.frame(x, 2, 36))}
     x = torch.from_numpy(specs[0]).cuda()
     for seq, name in ((0, "long"), (2, "short")):
-        busy[f"fb_{name}"] = device_busy_ms(
+        busy[f"fb_{name}"] = device_busy(
             lambda: fresh.frame_stacked(idx, seq, 0, x))
     launches = aec_package.package_step.launches
     if launches:
@@ -889,6 +904,12 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
                  for seq in range(4)}
     fb_med = float(np.median([ms for _, ms in fb_ms[1:]]))
     st_med = float(np.median(stereo))
+    # the idle share of a frame: its busy time against the median time of
+    # frames of its kind
+    for k, ms in (("synth_stereo", st_med), ("fb_long", fb_by_seq[0]),
+                  ("fb_short", fb_by_seq[2])):
+        if busy[k] is not None:
+            busy[k]["idle_share"] = round(1 - busy[k]["busy_ms"] / ms, 3)
     phase("codec_device", card=name_power, synth_batch=B_SYNTH,
           fb_slots=FB_SLOTS, card_equals_cpu=sorted(res["cuda"]),
           cpu_streams_compared={"synth": B_SYNTH, "fb_slots": FB_SLOTS},
@@ -902,7 +923,7 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
           fb_streams=round(FB_SLOTS // 2 * AAC_SAMPLES / 44100 /
                            (fb_med / 1e3), 1),
           fb_mixed_tick_ms_wall=round(card_tick_ms, 3),
-          aten_ops_per_frame=ops, device_busy_ms_per_frame=busy,
+          aten_ops_per_frame=ops, device_busy_per_frame=busy,
           state_bytes_per_frame={
               "synth_stereo": B_SYNTH * (2 * 36 * 32 * 4 + 2 * 2 * 2 * 16 *
                                          16 * 4 + 2 * 4 + 2 * 36 * 32 * 2),
@@ -957,6 +978,12 @@ def phase_codec_decoders(aec_package, name_power) -> int:
         with open(os.path.join(data_dir, "torch_codec_" + name), "rb") as f:
             return f.read()
 
+    # the C front-ends must serve: a failed build would send every stream
+    # to the Python front-ends without a word
+    from wmix_tpu_torch.codecs import aacfe, mp3fe
+    front_ends = {"mp3fe": mp3fe.available(), "aacfe": aacfe.available()}
+    if not all(front_ends.values()):
+        raise AssertionError(f"phase 15: C front-ends missing: {front_ends}")
     aec_package.package_step.launches = 0
     aac = [stream("aac_44k_stereo.aac"), stream("aac_32k_mono.aac")]
     cases = {
@@ -1002,7 +1029,7 @@ def phase_codec_decoders(aec_package, name_power) -> int:
     if launches:
         raise AssertionError(f"phase 15: {launches} AEC kernel launches")
     phase("codec_decoders", card=name_power, card_equals_cpu=True,
-          kernel_launches=launches, **rows)
+          c_front_ends=front_ends, kernel_launches=launches, **rows)
     return launches
 
 

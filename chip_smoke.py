@@ -75,7 +75,8 @@ non-zero and prints no result):
      stereo streams) over the ten-frame window walk (every sequence, both
      shapes, every transition) on seeded spectra, all slots at once, then
      one tick through `frame` with three (sequence, shape, previous shape)
-     groups; the same calls on the CPU over every stream: PCM, hist,
+     groups; the same calls on the CPU over the first 512 streams and
+     1024 slots (every stream in earlier runs): PCM, hist,
      phase, time_out, overlap and shape_prev equal, floats bitwise; ms per
      frame (CUDA events, median), streams = B * frame audio / time, the
      aten operations and bytes of one frame of each kind beside the
@@ -92,9 +93,29 @@ non-zero and prints no result):
      every stream and frame, and the ticks streams end in, equal to the
      CPU decoders'; ms per tick and streams = decoded audio / time; no
      kernel launch
+ 16. the daemon core on the card: EngineBridge(4096, 16000) with 256
+     WmixDaemons attached (LoopHal, NS+AEC+AGC+VAD, each its own seeded
+     microphone, a record task holding the path open, so one package a
+     tick), 30 ticks of pump(1) per daemon then bridge.tick(): ms per tick
+     of the pumps and of bridge.tick against 20 ms, the AEC kernel's
+     launches (every steady package of the batch), and every delivered
+     package equal to RecordChain(4096, 16000) driven directly with the
+     same packages; the same daemons through a CPU bridge of capacity
+     256, measured (largest LSB, packages and daemons beyond 4 LSB: in
+     fast mode a last-bit difference of the kernel can flip a VAD
+     decision, whose mute moves a package by thousands of LSB), and, in
+     exact mode (12 ticks), equal to the CPU's bridge for every daemon.
+     One inline daemon (16 kHz, all four modules): ms per heartbeat and
+     the aten operations of one over 20 packages in fast mode, measured
+     against the CPU, and 12 packages in exact mode equal to the CPU's.
+     The control plane: a daemon in realtime mode with its SysV queue and
+     shared-memory rings under a private MSG_PATH plays a seeded WAV sent
+     by `client.play` (LoopHal's speaker equal to the CPU daemon's from
+     the first sample played on) and `client.mem_1x8000` reads its record
+     ring, nonzero
 Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
-11-15, each counted from 0) and, last, {"ok": true, "device": {...}}.
+11-16, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -742,8 +763,11 @@ def phase_integer(aec_package, main_chain, main_pkg_ms, name_power):
     return launches, ops3
 
 
-# The device codec halves (phase 14) and the batch decoders (15)
+# The device codec halves (phase 14) and the batch decoders (15); phase
+# 14's CPU replay takes the first CPU_SYNTH streams and CPU_FB_SLOTS slots
+# (every stream was compared in four runs before phase 16 was added)
 B_SYNTH, FB_SLOTS, B_DEC = 4096, 8192, 128
+CPU_SYNTH, CPU_FB_SLOTS = 512, 1024
 MP3_FRAME_S, AAC_SAMPLES = 1152 / 44100, 1024
 # the ten-frame window walk of tests/test_aac_batch.py: (sequence, shape)
 FB_WALK = [(0, 0), (1, 0), (2, 1), (2, 1), (3, 0), (0, 0), (1, 1), (2, 0),
@@ -819,16 +843,17 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
     for d in ("cuda", "cpu"):
         t0 = time.perf_counter()
         card = d == "cuda"
+        ns_, nf = (B_SYNTH, FB_SLOTS) if card else (CPU_SYNTH, CPU_FB_SLOTS)
         synth = BatchedSynth(B_SYNTH) if card else \
-            BatchedSynth(B_SYNTH, device="cpu")
+            BatchedSynth(ns_, device="cpu")
         if synth.device.type != d:
             raise AssertionError("phase 14: BatchedSynth's default device "
                                  "is not the card")
         pcm = []
         for f, ((nch, ns), sb) in enumerate(zip(frames, sbs)):
             if f in resets:
-                synth.reset(resets[f])
-            x = torch.from_numpy(sb).to(synth.device)
+                synth.reset(resets[f][resets[f] < ns_])
+            x = torch.from_numpy(sb[:ns_]).to(synth.device)
             out = []
 
             def run():
@@ -840,11 +865,11 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
                 run()
             pcm.append(out[0].cpu())
         fb = BatchedFilterbank(FB_SLOTS) if card else \
-            BatchedFilterbank(FB_SLOTS, device="cpu")
-        idx = np.arange(FB_SLOTS)
+            BatchedFilterbank(nf, device="cpu")
+        idx = np.arange(nf)
         walk = []
         for (seq, shape), sp in zip(FB_WALK, specs):
-            x = torch.from_numpy(sp).to(fb.device)
+            x = torch.from_numpy(sp[:nf]).to(fb.device)
             out = []
 
             def run():
@@ -855,23 +880,25 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
             else:
                 run()
             walk.append(out[0].cpu())
-        jobs = [(s, *FB_GROUPS[s % 3], tick_specs[s])
-                for s in range(FB_SLOTS)]
+        jobs = [(s, *FB_GROUPS[s % 3], tick_specs[s]) for s in range(nf)]
         if card:
             torch.cuda.synchronize()
         t1 = time.perf_counter()
         tick = fb.frame(jobs)
         tick_ms = (time.perf_counter() - t1) * 1e3
-        res[d] = {"pcm": torch.stack(pcm[:8]), "pcm_mono": torch.stack(
-                      pcm[8:]), "hist": synth.hist.cpu(),
-                  "phase": synth.phase.cpu(),
-                  "time_out": bits(torch.stack(walk)),
+        # the first CPU_SYNTH streams and CPU_FB_SLOTS slots of each
+        res[d] = {"pcm": torch.stack(pcm[:8])[:, :CPU_SYNTH],
+                  "pcm_mono": torch.stack(pcm[8:])[:, :CPU_SYNTH],
+                  "hist": synth.hist.cpu()[:CPU_SYNTH],
+                  "phase": synth.phase.cpu()[:CPU_SYNTH],
+                  "time_out": bits(torch.stack(walk)[:, :CPU_FB_SLOTS]),
                   "tick_time_out": bits(torch.from_numpy(
-                      np.stack([tick[s] for s in range(FB_SLOTS)]))),
-                  "overlap": bits(fb.overlap.cpu()),
-                  "shape_prev": fb.shape_prev.cpu()}
+                      np.stack([tick[s] for s in range(CPU_FB_SLOTS)]))),
+                  "overlap": bits(fb.overlap.cpu()[:CPU_FB_SLOTS]),
+                  "shape_prev": fb.shape_prev.cpu()[:CPU_FB_SLOTS]}
         if card:
             card_synth, card_fb, card_tick_ms = synth, fb, tick_ms
+            card_idx, card_jobs = idx, jobs
         secs[d] = time.perf_counter() - t0
     for k, v in res["cuda"].items():
         check_equal(f"phase 14 {k}, card vs cpu", v, res["cpu"][k])
@@ -885,15 +912,15 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
     x = torch.from_numpy(specs[0]).cuda()
     fresh = BatchedFilterbank(FB_SLOTS)     # every slot's previous shape 0
     for seq, name in enumerate(("long", "start", "short", "stop")):
-        ops[f"fb_{name}"] = counted(lambda: fresh.frame_stacked(idx, seq, 0,
-                                                                x))
-    ops["fb_mixed_tick"] = counted(lambda: card_fb.frame(jobs))
+        ops[f"fb_{name}"] = counted(lambda: fresh.frame_stacked(
+            card_idx, seq, 0, x))
+    ops["fb_mixed_tick"] = counted(lambda: card_fb.frame(card_jobs))
     x = torch.from_numpy(sbs[0]).cuda()
     busy = {"synth_stereo": device_busy(lambda: card_synth.frame(x, 2, 36))}
     x = torch.from_numpy(specs[0]).cuda()
     for seq, name in ((0, "long"), (2, "short")):
         busy[f"fb_{name}"] = device_busy(
-            lambda: fresh.frame_stacked(idx, seq, 0, x))
+            lambda: fresh.frame_stacked(card_idx, seq, 0, x))
     launches = aec_package.package_step.launches
     if launches:
         raise AssertionError(f"phase 14: {launches} AEC kernel launches")
@@ -912,7 +939,8 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
             busy[k]["idle_share"] = round(1 - busy[k]["busy_ms"] / ms, 3)
     phase("codec_device", card=name_power, synth_batch=B_SYNTH,
           fb_slots=FB_SLOTS, card_equals_cpu=sorted(res["cuda"]),
-          cpu_streams_compared={"synth": B_SYNTH, "fb_slots": FB_SLOTS},
+          cpu_streams_compared={"synth": CPU_SYNTH,
+                                "fb_slots": CPU_FB_SLOTS},
           seconds={d: round(v, 3) for d, v in secs.items()},
           synth_stereo_ms=round(st_med, 3),
           synth_mono_ms=round(float(np.median(mono)), 3),
@@ -1030,6 +1058,311 @@ def phase_codec_decoders(aec_package, name_power) -> int:
         raise AssertionError(f"phase 15: {launches} AEC kernel launches")
     phase("codec_decoders", card=name_power, card_equals_cpu=True,
           c_front_ends=front_ends, kernel_launches=launches, **rows)
+    return launches
+
+
+# The daemon core (phase 16)
+N_DAEMONS, BRIDGE_CAP, DAEMON_TICKS, INLINE_PKGS = 256, 4096, 30, 20
+EXACT_TICKS, INLINE_EXACT_PKGS = 12, 12
+
+
+def daemon_mic(seed) -> bytes:
+    """Two seconds of seeded microphone noise (sigma 3000) at 16 kHz."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(32000) * 3000).astype(np.int16).tobytes()
+
+
+def make_daemon(seed, device, bridge=None, **kw):
+    """A 16 kHz mono WmixDaemon on LoopHal with NS, AEC, AGC and VAD on
+    and a record task holding the record path open: its play loop, idle,
+    runs one package a tick.  Returns (daemon, hal, delivered packages)."""
+    from wmix_tpu_torch.config import EngineConfig
+    from wmix_tpu_torch.service import core
+    from wmix_tpu_torch.service.hal import LoopHal
+    hal = LoopHal()
+    hal.feed_mic(daemon_mic(seed))
+    d = core.WmixDaemon(EngineConfig(chn=1, freq=16000), hal=hal,
+                        msg_queue=kw.get("msg_queue", False),
+                        shmem=kw.get("shmem", False), device=device)
+    for i in (core.WR_VAD, core.WR_AEC, core.WR_NS, core.WR_AGC):
+        d.webrtc_enable[i] = 1
+    d.thread_record = 1
+    got = []
+    out = d._record_out
+    d._record_out = lambda buf: (got.append(np.array(buf, np.int16)),
+                                 out(buf))
+    if bridge is not None:
+        bridge.attach(d)
+    return d, hal, got
+
+
+class exact_mode:
+    """WMIX_EXACT=1 while the chains and processors are built inside."""
+
+    def __enter__(self):
+        self.saved = os.environ.get("WMIX_EXACT")
+        os.environ["WMIX_EXACT"] = "1"
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("WMIX_EXACT")
+        else:
+            os.environ["WMIX_EXACT"] = self.saved
+
+
+def run_bridge(capacity, device, ticks=None):
+    """N_DAEMONS daemons on one EngineBridge, `ticks` ticks; returns the
+    packages each received [n, 320], ms per tick of the pumps and of
+    bridge.tick, and the bridge."""
+    from wmix_tpu_torch.service.engine_bridge import EngineBridge
+    bridge = EngineBridge(capacity, 16000, device=device)
+    ds = [make_daemon(1000 + i, device, bridge) for i in range(N_DAEMONS)]
+    pump_ms, tick_ms = [], []
+    for _ in range(ticks or DAEMON_TICKS):
+        t0 = time.perf_counter()
+        for d, _hal, _got in ds:
+            d.pump(1)
+        t1 = time.perf_counter()
+        bridge.tick()           # blocks on its outputs
+        t2 = time.perf_counter()
+        pump_ms.append((t1 - t0) * 1e3)
+        tick_ms.append((t2 - t1) * 1e3)
+    for d, _hal, _got in ds:
+        if not bridge.accepts(d):
+            raise AssertionError("phase 16: a daemon left the bridge")
+        bridge.detach(d)
+        d.stop()
+    return np.stack([np.stack(got) for _d, _h, got in ds]), pump_ms, \
+        tick_ms, bridge
+
+
+def lsb_stats(got, want) -> dict:
+    """Card against CPU over [daemon, package, sample]: the largest
+    difference, how many packages and daemons exceed 4 LSB, the share of
+    equal samples."""
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return {"max_lsb": int(d.max()),
+            "packages_over_4_lsb": int((d.max(axis=2) > LSB).sum()),
+            "daemons_over_4_lsb": int((d.max(axis=(1, 2)) > LSB).sum()),
+            "equal_share": round(float((d == 0).mean()), 4)}
+
+
+def ms_summary(xs) -> dict:
+    """Median and max past the first five (start-up) ticks (of all, in a
+    shorter run), and the first."""
+    steady = xs[5:] or xs
+    return {"p50": round(float(np.median(steady)), 3),
+            "max": round(float(max(steady)), 3),
+            "first": round(xs[0], 3), "budget_ms": 20.0}
+
+
+def short_dir() -> str:
+    """A fresh directory whose path leaves room in a 128-byte message for
+    an audio path and a task's queue path (WMIX_MSG_BUFF_SIZE)."""
+    d = tempfile.mkdtemp(prefix="wm")
+    if len(d) < 40:
+        return d
+    os.rmdir(d)
+    return os.path.relpath(tempfile.mkdtemp(prefix="wm", dir=os.getcwd()))
+
+
+def control_plane_run(device, wav_path):
+    """A realtime daemon on `device`, its queue and rings under the
+    current MSG_PATH, no DSP module on: `client.play` of the WAV, then
+    `client.mem_1x8000`.  Returns (speaker samples from the first nonzero
+    one to the last, the 8 kHz record read)."""
+    from wmix_tpu_torch.service import client
+    d, hal, _got = make_daemon(77, device, msg_queue=True, shmem=True)
+    d.thread_record = 0
+    d.webrtc_enable[:] = [0] * len(d.webrtc_enable)
+    d.start()
+    try:
+        if client.play(wav_path, order=2) <= 0:
+            raise AssertionError("phase 16: client.play gave no task id")
+        deadline = time.perf_counter() + 60
+        while True:
+            time.sleep(0.05)
+            if d.thread_play == 0 and not d.tick_has_data() and \
+                    np.frombuffer(bytes(hal.played), np.int16).any():
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("phase 16: the WAV never finished")
+        rec = client.mem_1x8000(800, wait=True)
+    finally:
+        d.stop()
+    played = np.frombuffer(bytes(hal.played), np.int16)
+    nz = np.nonzero(played)[0]
+    if not nz.size:
+        raise AssertionError("phase 16: nothing reached the speaker")
+    return played[nz[0]:nz[-1] + 1], rec
+
+
+def remove_rings(path) -> None:
+    """Remove the shared-memory rings a daemon made under `path`."""
+    import ctypes
+    from wmix_tpu_torch.service import sysv
+    libc = ctypes.CDLL(None)
+    for ch in (sysv.MEM_AI_1X8000_CHAR, sysv.MEM_AI_ORIGIN_CHAR):
+        shm_id = libc.shmget(sysv.ftok(path, ord(ch)), 0, 0)
+        if shm_id != -1:
+            libc.shmctl(shm_id, sysv.IPC_RMID, None)
+
+
+def inline_run(device, n_pkgs, timed=False):
+    """One inline daemon (make_daemon(5)): its delivered packages [n, 320],
+    ms per heartbeat (`timed`, the card) and the aten operations of the
+    last heartbeat (`timed`)."""
+    from wmix_tpu_torch.utils.trace import OpCounter
+    d, _hal, pk = make_daemon(5, device)
+    d.pump(1)                       # the record path opens
+    hb_ms, ops = [], None
+    for k in range(n_pkgs):
+        if timed and k == n_pkgs - 1:
+            with OpCounter() as c:
+                d.pump(1)
+            ops = {"ops": c.ops, "launching": c.launching}
+            continue
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.pump(1)
+        hb_ms.append((time.perf_counter() - t0) * 1e3)
+    aec_dev = d._webrtc[1].aec.state.near_fr.device.type
+    d.stop()
+    if aec_dev != torch.device(device).type:
+        raise AssertionError(f"phase 16: the inline AEC ran on {aec_dev}")
+    return np.stack(pk), hb_ms, ops
+
+
+def phase_daemon_core(aec_package, name_power) -> int:
+    """16. the daemon core on the card: N_DAEMONS daemons on an
+    EngineBridge of the north-star width, one inline daemon, the control
+    plane end to end."""
+    from wmix_tpu_torch.codecs import wav as wavc
+    from wmix_tpu_torch.engine.chain import RecordChain
+    from wmix_tpu_torch.service import sysv
+
+    from wmix_tpu_torch.ops import stepper
+    if stepper._lib() is None:
+        raise AssertionError("phase 16: the native stepper did not load")
+
+    # the bridge at full width, fast mode: the kernel's launches, and the
+    # bridged packages equal to the same chain driven directly
+    aec_package.package_step.launches = 0
+    t0 = time.perf_counter()
+    got, pump_ms, tick_ms, bridge = run_bridge(BRIDGE_CAP, None)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = aec_package.package_step.launches
+    n_pkgs = got.shape[1]
+    if launches != n_pkgs - 4:
+        raise AssertionError(f"phase 16: {launches} kernel launches over "
+                             f"{n_pkgs} packages")
+    if bridge.server.chain.device.type != "cuda" or \
+            not isinstance(bridge.server.chain.state.aec,
+                           aec_package.PackageAecState):
+        raise AssertionError("phase 16: the bridge is not on the card in "
+                             "the kernel layout")
+    if not got[:, -1].any(axis=1).all():
+        raise AssertionError("phase 16: a daemon received silence")
+    # the k-th package fed is the microphone's (k+1)-th: the record path's
+    # opening reads and drops one; the far end of an idle daemon is silent
+    direct = RecordChain(BRIDGE_CAP, 16000)
+    mic = np.zeros((BRIDGE_CAP, 320), np.int16)
+    mics = np.stack([np.frombuffer(daemon_mic(1000 + i), np.int16)
+                     for i in range(N_DAEMONS)])
+    for k in range(n_pkgs):
+        mic[:N_DAEMONS] = mics[:, (k + 1) * 320:(k + 2) * 320]
+        origin = direct.step(mic, np.zeros_like(mic))[0]
+        check_equal(f"phase 16 bridged daemons vs the chain, package {k}",
+                    origin[:N_DAEMONS].cpu().numpy(), got[:, k])
+    del direct
+    # the same daemons through a CPU bridge, fast mode: measured
+    t0 = time.perf_counter()
+    want, _, cpu_tick_ms, _ = run_bridge(N_DAEMONS, "cpu")
+    cpu_s = time.perf_counter() - t0
+    if want.shape != got.shape:
+        raise AssertionError("phase 16: the card and CPU bridges delivered "
+                             "different package counts")
+    fast_vs_cpu = lsb_stats(got, want)
+    # ... and in exact mode, gated: every package of every daemon equal
+    with exact_mode():
+        got_x, _, exact_tick_ms, bridge_x = run_bridge(
+            BRIDGE_CAP, None, EXACT_TICKS)
+        want_x, _, _, _ = run_bridge(N_DAEMONS, "cpu", EXACT_TICKS)
+    if bridge_x.server.chain.fast or \
+            bridge_x.server.chain.device.type != "cuda":
+        raise AssertionError("phase 16: the exact bridge is not exact on "
+                             "the card")
+    check_equal("phase 16 exact bridge, card vs CPU, every daemon",
+                got_x, want_x)
+
+    # one inline daemon on the card: fast mode timed and measured against
+    # the CPU, exact mode gated against the CPU
+    inl, hb_ms, ops = inline_run("cuda", INLINE_PKGS, timed=True)
+    inl_cpu, _, _ = inline_run("cpu", INLINE_PKGS)
+    if inl.shape != (INLINE_PKGS, 320):
+        raise AssertionError(f"phase 16: inline daemon delivered "
+                             f"{inl.shape}")
+    inline_fast = lsb_stats(inl[None], inl_cpu[None])
+    with exact_mode():
+        inl_x, _, _ = inline_run("cuda", INLINE_EXACT_PKGS)
+        inl_x_cpu, _, _ = inline_run("cpu", INLINE_EXACT_PKGS)
+    check_equal("phase 16 exact inline daemon, card vs CPU", inl_x,
+                inl_x_cpu)
+
+    # the control plane, card and CPU, each under its own private MSG_PATH
+    tmp = short_dir()
+    saved = sysv.MSG_PATH
+    try:
+        wav_path = os.path.join(tmp, "t.wav")
+        rng = np.random.RandomState(16)
+        pcm = (rng.randn(1800) * 4000).astype(np.int16)   # 8 kHz, one chunk
+        wavc.write(wav_path, pcm.tobytes(), 1, 8000)
+        res = {}
+        for device in ("cuda", "cpu"):
+            sysv.MSG_PATH = os.path.join(tmp, device)
+            try:
+                res[device] = control_plane_run(device, wav_path)
+            finally:
+                remove_rings(sysv.MSG_PATH)
+    finally:
+        sysv.MSG_PATH = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    (play_card, rec_card), (play_cpu, _rec_cpu) = res["cuda"], res["cpu"]
+    check_equal("phase 16 control plane: speaker, card vs CPU", play_card,
+                play_cpu)
+    if play_card.size < 3000 or rec_card.size != 800 or \
+            not rec_card.any():
+        raise AssertionError(f"phase 16: played {play_card.size} samples, "
+                             f"record ring read {rec_card.size}")
+
+    phase("daemon_core", card=name_power,
+          bridge={"capacity": BRIDGE_CAP, "daemons": N_DAEMONS,
+                  "ticks": DAEMON_TICKS, "packages_each": n_pkgs,
+                  "pumps_ms_per_tick": ms_summary(pump_ms),
+                  "bridge_tick_ms": ms_summary(tick_ms),
+                  "kernel_launches": launches,
+                  "equal_to_the_chain_driven_directly": True,
+                  "card_s": round(card_s, 3),
+                  "fast_vs_cpu_bridge": fast_vs_cpu,
+                  "cpu_replay_s": round(cpu_s, 3),
+                  "cpu_bridge_tick_ms": ms_summary(cpu_tick_ms),
+                  "exact_ticks": EXACT_TICKS,
+                  "exact_equal_to_cpu": True,
+                  "exact_bridge_tick_ms": ms_summary(exact_tick_ms)},
+          inline={"packages": INLINE_PKGS,
+                  "heartbeat_ms": ms_summary(hb_ms),
+                  "aten_ops_per_heartbeat": ops,
+                  "fast_vs_cpu": inline_fast,
+                  "exact_packages": INLINE_EXACT_PKGS,
+                  "exact_equal_to_cpu": True},
+          stepper_native=True,
+          control_plane={"speaker_equal_to_cpu": True,
+                         "samples_played": int(play_card.size),
+                         "record_ring_read": int(rec_card.size),
+                         "record_ring_peak": int(np.abs(
+                             rec_card.astype(np.int32)).max())})
     return launches
 
 
@@ -1224,6 +1557,7 @@ def main() -> int:
     per_op_ms = pkg_ms_main / ops3["launching"]
     by_phase["14"] = phase_codec_device(aec_package, per_op_ms, name_power)
     by_phase["15"] = phase_codec_decoders(aec_package, name_power)
+    by_phase["16"] = phase_daemon_core(aec_package, name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{

@@ -200,7 +200,12 @@ def test_import_is_jax_free():
             "'codecs._mp3_l12_tables', 'codecs.mp3', 'codecs.aac', "
             "'codecs.sbr', 'codecs.ps', 'codecs.adts', 'codecs.mp3fe', "
             "'codecs.aacfe', 'native', 'native.gen_mp3fe_tables', "
-            "'native.gen_aacfe_tables']\n"
+            "'native.gen_aacfe_tables', 'ops.stepper', 'ops.resample', "
+            "'codecs.wav', 'codecs.aacenc', 'codecs._aacenc_tables', "
+            "'io_.rtp', 'dsp.speex_aec', 'service.sysv', 'service.mem', "
+            "'service.hal', 'service.hal_alsa', 'service.tasks', "
+            "'service.core', 'service.daemon', 'service.client', "
+            "'service.cli', 'service.engine_bridge']\n"
             "missing = [w for w in want "
             "if 'wmix_tpu_torch.' + w not in sys.modules]\n"
             "assert not missing, missing\n"
@@ -237,6 +242,13 @@ DEVICE_ENTRY_POINTS = [
     ("codecs.mp3_batch", "Mp3BatchDecoder"),
     ("codecs.aac_batch", "BatchedFilterbank"),
     ("codecs.aac_batch", "AacBatchDecoder"),
+    ("service.core", "WmixDaemon"),
+    ("service.core", "_NsProc"),
+    ("service.core", "_AgcProc"),
+    ("service.core", "_VadProc"),
+    ("dsp.aec", "AecProcessor"),
+    ("dsp.nsx", "NsxProcessor"),
+    ("dsp.aecm", "AecmProcessor"),
 ]
 
 

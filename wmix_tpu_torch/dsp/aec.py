@@ -489,3 +489,43 @@ def process_block_kernel(dev: AecDev, xf130, xfw130, nearend, rand64,
         st_near_state=st_near, echo_state=echo_state,
         diverge_state=diverge.to(I32))
     return dev, output
+
+
+# --------------------------------------------------------------------------
+# daemon wrapper (src/webrtc.c aec_process2:410-483)
+# --------------------------------------------------------------------------
+
+class AecProcessor:
+    """The daemon's aec handle for one stream (`wmix_tpu.dsp.aec`'s
+    AecProcessor): chn/freq geometry, the 10-or-20 ms subpackage loop,
+    left-channel extraction, the (int16_t) cast with NaN -> 0, the output
+    duplicated to every channel.
+
+    Runs over the engine's exact-layout step (`engine/aec_step.py`
+    `AecBatch` at B = 1 on `device`, the card unless the caller asks for
+    the CPU), whose host planner replays the reference's ring cursors; the
+    arithmetic mode is read when the processor is built.  Packages are
+    tensors [1, frames * chn] of int16 values, and so is the output (int32
+    holding int16 values), on the processor's device.  The reported delay
+    is the daemon's 0, which the planner assumes.  8 or 16 kHz (AecBatch
+    raises otherwise)."""
+
+    def __init__(self, chn: int, freq: int, interval_ms: int = 20,
+                 device=None):
+        from wmix_tpu_torch.engine.aec_step import AecBatch
+        self.chn = chn
+        self.freq = freq
+        self.aec = AecBatch(1, freq, device=device, interval_ms=interval_ms)
+        self.pkg_frame = self.aec.sub_len
+
+    def process2(self, far: torch.Tensor, near: torch.Tensor,
+                 delay_ms: int = 0) -> torch.Tensor:
+        """aec_process2: BufferFarend + Process per subpackage."""
+        from wmix_tpu_torch.engine.aec_step import cast_out_int16
+        if delay_ms:
+            raise ValueError("the planner plans the daemon's reported "
+                             "delay of 0 ms")
+        out = cast_out_int16(self.aec.step(far[:, ::self.chn].to(F32),
+                                           near[:, ::self.chn].to(F32)))
+        return out.repeat_interleave(self.chn, dim=1) if self.chn > 1 \
+            else out

@@ -633,3 +633,36 @@ def process_block(st: dict, far64, near64, cos_sin, hist_pos: int,
     st["x_buf"] = x_buf
     st["d_buf"] = d_buf
     return st, output.to(I32)
+
+
+# --------------------------------------------------------------------------
+# daemon wrapper (src/webrtc.c aec_* with MAKE_WEBRTC_AEC undefined)
+# --------------------------------------------------------------------------
+
+class AecmProcessor:
+    """aec_init/aec_process2 with the AECM branch for one stream
+    (`wmix_tpu.dsp.aecm`'s AecmProcessor): left channel only, the output
+    cast to int16 and duplicated to every channel.  Runs over
+    `engine/aecm_step.py` `AecmBatch` at B = 1 on `device` (the card unless
+    the caller asks for the CPU); packages are tensors [1, frames * chn]
+    of int16 values, and so is the output (int32)."""
+
+    def __init__(self, chn: int, freq: int, interval_ms: int,
+                 device=None):
+        from wmix_tpu_torch.engine.aecm_step import AecmBatch
+        if freq > 16000 or freq % 8000 != 0:
+            raise ValueError("freq must be 8000/16000")
+        self.chn = chn
+        self.freq = freq
+        self.inst = AecmBatch(1, freq, device, interval_ms)
+        self.pkg_frame = self.inst.sub_len
+
+    def process2(self, frame_far: torch.Tensor, frame_near: torch.Tensor,
+                 delayms: int = 0) -> torch.Tensor:
+        if delayms:
+            raise ValueError("the planner plans the daemon's reported "
+                             "delay of 0 ms")
+        out = wrap16(self.inst.step(frame_far[:, ::self.chn],
+                                    frame_near[:, ::self.chn]))
+        return out.repeat_interleave(self.chn, dim=1) if self.chn > 1 \
+            else out

@@ -1171,3 +1171,24 @@ def process_pkg(st: NsxState, pkg, chn: int, freq: int, mode: int = 2):
         st, ob = process_block(st, bands, freq, mode, chn)
         out[:, off:off + cfg.blk] = ob.transpose(1, 2)
     return st, out.reshape(x.shape)
+
+
+class NsxProcessor:
+    """ns_init/ns_process with the NSX branch for one stream
+    (`wmix_tpu.dsp.nsx`'s NsxProcessor, webrtc.c:511-530): `process_pkg`
+    at B = 1 on `device` (the card unless the caller asks for the CPU),
+    the output cast to int16.  Packages are tensors [1, frames * chn] of
+    int16 values, and so is the output (int32)."""
+
+    def __init__(self, chn: int, freq: int, mode: int = 2, device=None):
+        if freq > 32000 or freq % 8000 != 0:
+            raise ValueError("freq must be 8000/16000/32000")
+        self.chn = chn
+        self.freq = freq
+        self.mode = mode
+        self.st = init_state(1, freq, device, mode)
+
+    def process(self, frame: torch.Tensor) -> torch.Tensor:
+        self.st, out = process_pkg(self.st, frame, self.chn, self.freq,
+                                   self.mode)
+        return wrap16(out)

@@ -313,8 +313,14 @@ class AecPlanner:
         interval = 20 if freq <= 8000 else 10
         sub_frames = freq // 1000 * interval
         frame_num = freq // 1000 * 20
+        return self.plan_subs(sub_frames, frame_num // sub_frames)
+
+    def plan_subs(self, sub_frames: int, n_subs: int) -> PkgPlan:
+        """`n_subs` BufferFarend + Process calls of `sub_frames` samples:
+        `plan_pkg` is the 20 ms package of the record chain; the daemon's
+        single-stream wrapper plans its own package length this way."""
         subs = []
-        for _ in range(frame_num // sub_frames):
+        for _ in range(n_subs):
             pre_write, extractions = self._plan_buffer_farend(sub_frames)
             startup, frames = self._plan_process(sub_frames)
             subs.append(SubPlan(pre_write, extractions, startup, frames))

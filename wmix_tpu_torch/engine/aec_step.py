@@ -181,22 +181,33 @@ def pack_dyn(plan: PkgPlan, part_cap: int):
     }
 
 
+def sub_len_of(freq: int, interval_ms: int) -> int:
+    """The AEC wrapper's subpackage (webrtc.c aec_init, for the AEC and the
+    AECM alike): 20 ms at 8 kHz when the package is a multiple of 20 ms,
+    else 10 ms."""
+    if freq <= 8000:
+        return freq // 1000 * (20 if interval_ms % 20 == 0 else 10)
+    return freq // 1000 * 10
+
+
 class AecBatch:
     """Batched AEC over B stream slots: planner + device state (mono; the
     daemon takes the left channel before the AEC and duplicates after,
-    which is the caller's part).  8 or 16 kHz; the mode is read when the
-    object is built."""
+    which is the caller's part).  8 or 16 kHz; one `interval_ms` package
+    per step, in the wrapper's subpackages (`sub_len_of`); the mode is
+    read when the object is built."""
 
     def __init__(self, batch: int, freq: int,
-                 part_cap: int = DEFAULT_PART_CAP, device=None, exact=None):
+                 part_cap: int = DEFAULT_PART_CAP, device=None, exact=None,
+                 interval_ms: int = 20):
         if freq > 16000 or freq % 8000:
             raise ValueError("the AEC runs at 8 or 16 kHz")
         self.batch = batch
         self.freq = freq
         self.part_cap = part_cap
         self.exact = is_exact(exact)
-        self.sub_len = freq // 1000 * (20 if freq <= 8000 else 10)
-        self.pkg_len = freq // 1000 * 20
+        self.sub_len = sub_len_of(freq, interval_ms)
+        self.pkg_len = freq // 1000 * interval_ms
         self.planner = AecPlanner(freq)
         self.state = init_eng_state(batch, part_cap, device)
 
@@ -210,9 +221,10 @@ class AecBatch:
                                "capacity; raise part_cap")
 
     def step(self, far_pkg, near_pkg):
-        """One 20 ms package for the whole batch: [B, pkg_len] float32
+        """One package for the whole batch: [B, pkg_len] float32
         (int16-valued) in, [B, pkg_len] float32 AEC output out."""
-        plan = self.planner.plan_pkg()
+        plan = self.planner.plan_subs(self.sub_len,
+                                      self.pkg_len // self.sub_len)
         self._check()
         fn = build_pkg_body(plan.signature(), self.sub_len,
                             self.planner.mult, self.planner.nlp_mode,

@@ -34,7 +34,8 @@ from wmix_tpu_torch.dsp._aecm_tables import (BUF_SIZE_FRAMES, FAR_BUF_LEN,
                                              MAX_DELAY, PART_LEN)
 from wmix_tpu_torch.dsp.aec import _rand_u_array
 from wmix_tpu_torch.engine.aec_plan import _AbsRing
-from wmix_tpu_torch.engine.aec_step import ring_read, ring_write_
+from wmix_tpu_torch.engine.aec_step import (ring_read, ring_write_,
+                                            sub_len_of)
 
 I32 = torch.int32
 
@@ -211,8 +212,13 @@ class AecmPlanner:
         freq = self.freq
         sub_len = freq // 1000 * (20 if freq <= 8000 else 10)
         pkg_len = freq // 1000 * 20
+        return self.plan_subs(sub_len, pkg_len // sub_len)
+
+    def plan_subs(self, sub_len: int, n_subs: int) -> AecmPkgPlan:
+        """`n_subs` BufferFarend + Process calls of `sub_len` samples
+        (`plan_pkg`: the 20 ms package of the record chain)."""
         subs = []
-        for off in range(0, pkg_len, sub_len):
+        for off in range(0, n_subs * sub_len, sub_len):
             # BufferFarend (an overflow would drop samples; the daemon's
             # pacing never reaches it)
             if not self.ec_startup:
@@ -368,19 +374,22 @@ def build_pkg_body(signature, sub_len: int, mult: int):
 class AecmBatch:
     """Batched AECM: B concurrent streams of the daemon's aec_process2
     (AECM branch), mono (the wrapper's left-channel-only stereo is the
-    caller's reshape)."""
+    caller's reshape), one `interval_ms` package per step."""
 
-    def __init__(self, batch: int, freq: int, device=None):
+    def __init__(self, batch: int, freq: int, device=None,
+                 interval_ms: int = 20):
         self.batch = batch
         self.freq = freq
         self.planner = AecmPlanner(freq)
-        self.sub_len = freq // 1000 * (20 if freq <= 8000 else 10)
+        self.sub_len = sub_len_of(freq, interval_ms)
+        self.pkg_len = freq // 1000 * interval_ms
         self.state = init_eng_state(batch, freq, device)
 
     def step(self, far_pkg, near_pkg):
-        """One 20 ms package: far/near [B, pkg] int16 values (numpy or
-        tensors) -> out [B, pkg] int32 on the state's device."""
-        plan = self.planner.plan_pkg()
+        """One package: far/near [B, pkg] int16 values (numpy or tensors)
+        -> out [B, pkg] int32 on the state's device."""
+        plan = self.planner.plan_subs(self.sub_len,
+                                      self.pkg_len // self.sub_len)
         fn = build_pkg_body(plan.signature(), self.sub_len,
                             self.planner.mult)
         dev = self.state.farend.device

@@ -106,8 +106,9 @@ non-zero and prints no result):
      decision, whose mute moves a package by thousands of LSB), and, in
      exact mode (12 ticks), equal to the CPU's bridge for every daemon.
      One inline daemon (16 kHz, all four modules): ms per heartbeat and
-     the aten operations of one over 20 packages in fast mode, measured
-     against the CPU, and 12 packages in exact mode equal to the CPU's.
+     the aten operations of one over 20 packages in fast mode, within 4
+     LSB of the same daemon on the CPU, and 12 packages in exact mode
+     equal to the CPU's.
      The control plane: a daemon in realtime mode with its SysV queue and
      shared-memory rings under a private MSG_PATH plays a seeded WAV sent
      by `client.play` (LoopHal's speaker equal to the CPU daemon's from
@@ -1305,6 +1306,9 @@ def phase_daemon_core(aec_package, name_power) -> int:
         raise AssertionError(f"phase 16: inline daemon delivered "
                              f"{inl.shape}")
     inline_fast = lsb_stats(inl[None], inl_cpu[None])
+    if inline_fast["max_lsb"] > LSB:
+        raise AssertionError(f"phase 16: inline daemon, card vs CPU "
+                             f"{inline_fast['max_lsb']} LSB")
     with exact_mode():
         inl_x, _, _ = inline_run("cuda", INLINE_EXACT_PKGS)
         inl_x_cpu, _, _ = inline_run("cpu", INLINE_EXACT_PKGS)

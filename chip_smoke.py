@@ -5,6 +5,8 @@ chain against itself on the CPU, and prints one JSON result line.
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --sharded-only    # phases 1, 2 and 17 alone
+
 Phases (each prints a line; any failed check raises, so the run exits
 non-zero and prints no result):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -114,10 +116,25 @@ non-zero and prints no result):
      by `client.play` (LoopHal's speaker equal to the CPU daemon's from
      the first sample played on) and `client.mem_1x8000` reads its record
      ring, nonzero
+ 17. the stream batch over shards: ShardedRecordChain(4096, 16000) with
+     one shard on every visible card (two shards on cuda:0 with one
+     card), the first 12 packages of phase 3's audio: the kernel's
+     launches on each shard's device (every steady package of every
+     shard), each shard equal to a dedicated RecordChain of its width on
+     its slots and device, bit for bit; against phase 3's
+     RecordChain(4096) outputs the largest LSB, the equal share and the
+     streams beyond 4 LSB, reported (in fast mode the card's matrix
+     products follow the batch size); ms per sharded package beside
+     phase 3's and beside the sum of the shard-width chains' (timed in
+     this phase, so a host that slows over the script does not bias it)  Exact mode and the integer
+     chain at B=1024 over the same shards, 8 packages: equal to the
+     unsharded chain on the card, outputs and every state leaf.  With
+     two cards or more, dryrun_multichip over all of them
 Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
-11-16, each counted from 0) and, last, {"ok": true, "device": {...}}.
+11-17, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
+import contextlib
 import copy
 import json
 import os
@@ -1370,7 +1387,154 @@ def phase_daemon_core(aec_package, name_power) -> int:
     return launches
 
 
-def main() -> int:
+# The stream batch over shards (phase 17)
+SHARD_PKGS, SHARD_TIMED = 12, 6
+B_SHARD_X, SHARD_X_PKGS = 1024, 8
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def timed_steps(chain, mic, play, n_pkgs, n_timed):
+    """`n_pkgs` packages through `chain.step`; the outputs on the host
+    and ms per package over the last `n_timed`."""
+    outs = []
+    for k in range(n_pkgs):
+        if k == n_pkgs - n_timed:
+            sync_all()
+            t0 = time.perf_counter()
+        outs.append(chain.step(mic[k], play[k]))
+    sync_all()
+    pkg_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    return [np.stack([o[j].cpu().numpy() for o in outs])
+            for j in range(3)], pkg_ms
+
+
+def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
+                  name_power) -> int:
+    """17. ShardedRecordChain at full width: one shard a card on every
+    visible card, or two shards on cuda:0 when there is one card.
+    `main_origin` is RecordChain(4096)'s origin over the same packages
+    (numpy), `main_pkg_ms` its ms per package."""
+    from wmix_tpu_torch.engine.chain import RecordChain, ShardedRecordChain
+    from wmix_tpu_torch.engine.checkpoint import _leaves
+    from wmix_tpu_torch.multichip import dryrun_multichip
+    n_cards = torch.cuda.device_count()
+    shards = n_cards if n_cards >= 2 else 2
+    devices = [f"cuda:{i % n_cards}" for i in range(shards)]
+
+    # fast mode, the kernel on every shard's device
+    aec_package.package_step.launches = 0
+    aec_package.package_step.launches_by_device.clear()
+    sh = ShardedRecordChain(B_MAIN, 16000, shards=shards, devices=devices)
+    got, sh_ms = timed_steps(sh, mic_d, play_d, SHARD_PKGS, SHARD_TIMED)
+    launches = aec_package.package_step.launches
+    by_device = dict(aec_package.package_step.launches_by_device)
+    want_by_device = {}
+    for d in devices:
+        want_by_device[d] = want_by_device.get(d, 0) + SHARD_PKGS - 4
+    if by_device != want_by_device or not all(
+            isinstance(st.aec, aec_package.PackageAecState)
+            for st in sh.state):
+        raise AssertionError(f"phase 17: kernel launches by device "
+                             f"{by_device}, expected {want_by_device}")
+    if not got[0][-1].any(axis=1).all():
+        raise AssertionError("phase 17: a stream is silent")
+    # each shard against a dedicated chain of its width on its slots
+    one_ms = []
+    for (_ch, lo, hi), d in zip(sh.shard_ranges(), devices):
+        one = RecordChain(hi - lo, 16000, device=d)
+        want, ms = timed_steps(one, mic_d[:, lo:hi], play_d[:, lo:hi],
+                               SHARD_PKGS, SHARD_TIMED)
+        one_ms.append(ms)
+        for j, nm in enumerate(("origin", "pkg8k", "vflags")):
+            check_equal(f"phase 17 shard {lo}:{hi} on {d} vs a chain of "
+                        f"its width, {nm}", got[j][:, lo:hi], want[j])
+        del one
+    del sh
+    # against phase 3's RecordChain(4096) on the same packages: reported
+    d = np.abs(got[0].astype(np.int32) - main_origin.astype(np.int32))
+    vs_main = {"max_lsb": int(d.max()), "equal_share": round(float(
+        (d == 0).mean()), 6), "streams_over_4_lsb": int(
+        (d.max(axis=(0, 2)) > LSB).sum())}
+
+    # exact mode and the integer chain: sharded == unsharded on the card,
+    # outputs and every state leaf
+    exact_rows = {}
+    for mode, kw in (("exact", {}),
+                     ("integer", dict(aec_backend="aecm",
+                                      ns_backend="nsx"))):
+        with (exact_mode() if mode == "exact" else contextlib.nullcontext()):
+            sx = ShardedRecordChain(B_SHARD_X, 16000, shards=shards,
+                                    devices=devices, **kw)
+            ux = RecordChain(B_SHARD_X, 16000, **kw)
+        if sx.chains[0].fast == (mode == "exact"):
+            raise AssertionError(f"phase 17 {mode}: wrong arithmetic mode")
+        n0 = aec_package.package_step.launches
+        mic_x = mic_d[:SHARD_X_PKGS, :B_SHARD_X]
+        play_x = play_d[:SHARD_X_PKGS, :B_SHARD_X]
+        got_x, sx_ms = timed_steps(sx, mic_x, play_x, SHARD_X_PKGS, 4)
+        want_x, ux_ms = timed_steps(ux, mic_x, play_x, SHARD_X_PKGS, 4)
+        if aec_package.package_step.launches != n0:
+            raise AssertionError(f"phase 17 {mode}: the kernel launched")
+        for j, nm in enumerate(("origin", "pkg8k", "vflags")):
+            check_equal(f"phase 17 {mode}: sharded vs unsharded, {nm}",
+                        got_x[j], want_x[j])
+        whole = _leaves(ux.state)
+        for (_ch, lo, hi), st in zip(sx.shard_ranges(), sx.state):
+            for i, (a, b) in enumerate(zip(_leaves(st), whole)):
+                check_equal(f"phase 17 {mode}: shard {lo}:{hi} state leaf "
+                            f"{i}", a, b[lo:hi])
+        if not got_x[0][-1].any():
+            raise AssertionError(f"phase 17 {mode}: silent output")
+        exact_rows[mode] = {
+            "batch": B_SHARD_X, "packages": SHARD_X_PKGS,
+            "state_leaves": len(whole), "equal_to_unsharded": True,
+            "sharded_pkg_ms": round(sx_ms, 3),
+            "unsharded_pkg_ms": round(ux_ms, 3)}
+        del sx, ux
+
+    dryrun = None
+    if n_cards >= 2:
+        t0 = time.perf_counter()
+        dryrun_multichip(n_cards)
+        dryrun = {"devices": n_cards, "passed": True,
+                  "seconds": round(time.perf_counter() - t0, 3)}
+    phase("sharded_chain", card=name_power, cards=n_cards, shards=shards,
+          devices=devices, batch=B_MAIN, packages=SHARD_PKGS,
+          kernel_launches=launches, launches_by_device=by_device,
+          shards_equal_to_chains_of_their_width=True,
+          sharded_pkg_ms=round(sh_ms, 3),
+          shard_width_chain_pkg_ms=[round(x, 3) for x in one_ms],
+          pkg_ms_phase3=round(main_pkg_ms, 3),
+          sharded_over_phase3=round(sh_ms / main_pkg_ms, 3),
+          sharded_over_sum_of_shard_chains=round(sh_ms / sum(one_ms), 3),
+          vs_phase3_chain=vs_main, dryrun_multichip=dryrun, **exact_rows)
+    return launches
+
+
+def sharded_only(aec_package, name_power) -> int:
+    """`--sharded-only`: phase 17 alone, beside RecordChain(4096) over the
+    same first 12 packages of phase 3's audio on cuda:0, for a run on
+    several cards that needs no other phase."""
+    from wmix_tpu_torch.engine.chain import RecordChain
+    mic, play = audio(K * CHUNKS, B_MAIN, seed=0)
+    mic_d = torch.from_numpy(mic[:SHARD_PKGS]).cuda()
+    play_d = torch.from_numpy(play[:SHARD_PKGS]).cuda()
+    outs, pkg_ms = timed_steps(RecordChain(B_MAIN, 16000), mic_d, play_d,
+                               SHARD_PKGS, SHARD_TIMED)
+    phase("main_path_short", batch=B_MAIN, packages=SHARD_PKGS,
+          pkg_ms=round(pkg_ms, 3))
+    launches = phase_sharded(aec_package, mic_d, play_d, outs[0], pkg_ms,
+                             name_power)
+    print(json.dumps({"kernels": [{"name": "aec_package",
+                                   "launches_by_phase": {"17": launches}}]}))
+    return 0
+
+
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
@@ -1397,6 +1561,14 @@ def main() -> int:
     phase("build", source="wmix_tpu_torch/csrc/aec_package.cu",
           arch="sm_90a", built=log["built"],
           seconds=round(log["seconds"], 3), ptxas=ptxas)
+
+    if list(argv) == ["--sharded-only"]:
+        rc = sharded_only(aec_package, name_power)
+        print(name_power)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return rc
 
     # 3. main path at full size
     mic, play = audio(K * CHUNKS, B_MAIN, seed=0)
@@ -1562,6 +1734,9 @@ def main() -> int:
     by_phase["14"] = phase_codec_device(aec_package, per_op_ms, name_power)
     by_phase["15"] = phase_codec_decoders(aec_package, name_power)
     by_phase["16"] = phase_daemon_core(aec_package, name_power)
+    by_phase["17"] = phase_sharded(
+        aec_package, mic_d, play_d, outs[0][0][:SHARD_PKGS].cpu().numpy(),
+        pkg_ms_main, name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{
@@ -1586,4 +1761,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -4,9 +4,12 @@ against its plain version.
 Chain: RecordChain(2, 16000) in its defaults (NS+AEC+AGC+VAD, AGC 5 dB),
 a chunk of 9 packages (3 start-up, 1 irregular, 5 steady) and a chunk of 5
 steady ones, of seeded mic/play audio as test_aec_pallas.py makes them,
-the JAX chain with WMIX_PALLAS=1 (its Pallas kernel in interpret mode) in
-fast mode.  Both chunks hold 5 steady packages, so the JAX side compiles
-its steady program (the slow part of the set-up) once.  Gate: origin and the 8 kHz package within
+against the JAX chain with WMIX_PALLAS=1 (its Pallas kernel in interpret
+mode) in fast mode.  The JAX chain's outputs and its state between the
+chunks are stored in tests/data/torch_chain_fast_fast_pallas_16k.npz by
+`python tools/gen_torch_chain_ref.py fast_pallas_16k` (about two
+CPU-minutes of XLA compilation); the test marked `slow` runs `wmix_tpu`
+again and holds the file to it.  Gate: origin and the 8 kHz package within
 4 LSB, VAD flags equal (float32 reassociation through NS and AEC, as
 test_aec_pallas.py:62-90).  A second check starts the port's chain from
 the JAX chain's own state after chunk 1 (carried across with
@@ -19,24 +22,25 @@ The kernel test needs a CUDA device and skips without one; on a GPU
 machine without jax it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_chain.py
 """
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-B = 2
-CHUNK_LENS = (9, 5)     # 4 + 5 steady packages, then 5 steady
+from tools import gen_torch_chain_ref as gen  # noqa: E402
+
+B = gen.B
+CHUNK_LENS = gen.FAST_CHUNK_LENS     # 4 + 5 steady packages, then 5 steady
 K = CHUNK_LENS[0]
 CHUNKS = len(CHUNK_LENS)
 LSB = 4
 
 
 def _audio():
-    rng = np.random.RandomState(0)
-    mic = (rng.randn(sum(CHUNK_LENS), B, 320) * 3000).astype(np.int16)
-    play = (rng.randn(sum(CHUNK_LENS), B, 320) * 5000).astype(np.int16)
-    return mic, play
+    return gen.fast_audio()
 
 
 def _chunk(x, c):
@@ -46,20 +50,31 @@ def _chunk(x, c):
 
 @pytest.fixture(scope="module")
 def ref():
-    # jax only here: the CUDA test below runs where jax is not installed
-    import jax
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("WMIX_FAST", "1")
-        mp.setenv("WMIX_PALLAS", "1")
-        from wmix_tpu.engine.chain import RecordChain
-        mic, play = _audio()
-        ch = RecordChain(B, 16000)
-        outs, states = [], []
-        for c in range(CHUNKS):
-            states.append(jax.tree_util.tree_map(np.array, ch.state))
-            o = ch.run_chunk(_chunk(mic, c), _chunk(play, c))
-            outs.append([np.asarray(v) for v in o])
-    return dict(outs=outs, states=states)
+    stored = gen.load_fast_reference()
+    return dict(outs=stored["outs"], states={1: stored["state1"]})
+
+
+@pytest.mark.slow
+def test_stored_reference_is_what_wmix_tpu_gives(tmp_path):
+    """Runs `wmix_tpu`'s fast Pallas chain again, in a process of its own
+    (it reads its mode when it traces), and holds the stored file to it,
+    array by array."""
+    import subprocess
+    import sys
+    out = tmp_path / "fresh.npz"
+    code = ("import sys, numpy as np; sys.path.insert(0, sys.argv[1]); "
+            "from tools import gen_torch_chain_ref as g; "
+            "np.savez(sys.argv[2], **g.fast_reference_run())")
+    subprocess.run([sys.executable, "-c", code, gen.REPO, str(out)],
+                   check=True, env=dict(os.environ, PYTHONPATH=gen.REPO))
+    with np.load(gen.path_of(gen.FAST_CASE)) as z, np.load(out) as f:
+        assert sorted(z.files) == sorted(f.files)
+        for k in z.files:
+            np.testing.assert_array_equal(z[k], f[k], err_msg=k)
+
+
+def test_reference_file_is_small():
+    assert os.path.getsize(gen.path_of(gen.FAST_CASE)) < 200_000
 
 
 def _check(port, want):

@@ -205,7 +205,9 @@ def test_import_is_jax_free():
             "'io_.rtp', 'dsp.speex_aec', 'service.sysv', 'service.mem', "
             "'service.hal', 'service.hal_alsa', 'service.tasks', "
             "'service.core', 'service.daemon', 'service.client', "
-            "'service.cli', 'service.engine_bridge']\n"
+            "'service.cli', 'service.engine_bridge', 'multichip', "
+            "'ops.mathfft', 'ui', 'ui.bmp', 'ui.fbmap', 'ui.wave', 'tools', "
+            "'tools.rtp_pcm', 'tools.rtp_aac']\n"
             "missing = [w for w in want "
             "if 'wmix_tpu_torch.' + w not in sys.modules]\n"
             "assert not missing, missing\n"

@@ -64,10 +64,106 @@ INT_CASES = {
 
 SNAPSHOT_CASES = ("int_16k_mono",)
 
+# The fast chain with wmix_tpu's Pallas package kernel (interpret mode on
+# the CPU), as tests/test_torch_chain.py holds the port to it: B = 2, a
+# chunk of 9 packages (3 start-up, 1 irregular, 5 steady) and a chunk of
+# 5 steady ones.  Both chunks hold 5 steady packages, so the reference
+# compiles its steady program once.
+FAST_CASE = "fast_pallas_16k"
+FAST_CHUNK_LENS = (9, 5)
+
 
 def path_of(case: str) -> str:
-    kind = "int" if case in INT_CASES else "exact"
+    kind = "int" if case in INT_CASES else \
+        "fast" if case == FAST_CASE else "exact"
     return os.path.join(DATA_DIR, f"torch_chain_{kind}_{case}.npz")
+
+
+def fast_audio():
+    """(mic, play) int16 [14, B, 320] of the fast case: seeded Gaussian
+    noise, as tests/test_aec_pallas.py makes its audio."""
+    rng = np.random.RandomState(0)
+    n = sum(FAST_CHUNK_LENS)
+    mic = (rng.randn(n, B, 320) * 3000).astype(np.int16)
+    play = (rng.randn(n, B, 320) * 5000).astype(np.int16)
+    return mic, play
+
+
+def tree_from_leaves(names, arrays):
+    """The nested structure that `jax.tree_util.keystr` names describe
+    (".ns.noise", ".aec.p['wf_re']"): attributes become namespaces, keys
+    dicts; what `wmix_tpu_torch.engine.chain.state_from_numpy` reads."""
+    import re
+    from types import SimpleNamespace
+    root = SimpleNamespace()
+    for name, arr in zip(names, arrays):
+        parts = re.findall(r"\.(\w+)|\['([^']+)'\]", str(name))
+        node = root
+        for (attr, key), (_, next_key) in zip(parts, parts[1:]):
+            child = {} if next_key else SimpleNamespace()
+            if attr:
+                if not hasattr(node, attr):
+                    setattr(node, attr, child)
+                node = getattr(node, attr)
+            else:
+                node = node.setdefault(key, child)
+        attr, key = parts[-1]
+        if attr:
+            setattr(node, attr, arr)
+        else:
+            node[key] = arr
+    return root
+
+
+def _jax_on_cpu():
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_allow_excess_precision" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_allow_excess_precision=false").strip()
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    return jax
+
+
+def fast_reference_run() -> dict:
+    """The fast case through `wmix_tpu` (WMIX_FAST=1, WMIX_PALLAS=1, x64 as
+    the tests run it): each chunk's outputs (`origin0`, `pkg8k0`,
+    `vflags0`, then `...1`) and every leaf of the state between the two
+    chunks in full (`state1_names`, `state1_<i>`)."""
+    os.environ["WMIX_FAST"] = "1"
+    os.environ["WMIX_PALLAS"] = "1"
+    os.environ.pop("WMIX_EXACT", None)
+    jax = _jax_on_cpu()
+    from wmix_tpu.engine.chain import RecordChain
+    mic, play = fast_audio()
+    ch = RecordChain(B, 16000)
+    out, lo = {}, 0
+    for c, n in enumerate(FAST_CHUNK_LENS):
+        if c == 1:
+            leaves = jax.tree_util.tree_flatten_with_path(ch.state)[0]
+            out["state1_names"] = np.array(
+                [jax.tree_util.keystr(p) for p, _ in leaves])
+            out.update({f"state1_{i}": np.array(x)
+                        for i, (_, x) in enumerate(leaves)})
+        o = ch.run_chunk(mic[lo:lo + n], play[lo:lo + n])
+        for nm, v in zip(("origin", "pkg8k", "vflags"), o):
+            out[f"{nm}{c}"] = np.asarray(v)
+        lo += n
+    return out
+
+
+def load_fast_reference() -> dict:
+    """The stored fast case as the live reference gave it: `outs`, one
+    (origin, pkg8k, vflags) per chunk, and `state1`, the state between the
+    chunks as a tree of numpy arrays."""
+    with np.load(path_of(FAST_CASE)) as z:
+        names = z["state1_names"]
+        return dict(
+            outs=[[z[f"{nm}{c}"] for nm in ("origin", "pkg8k", "vflags")]
+                  for c in range(len(FAST_CHUNK_LENS))],
+            state1=tree_from_leaves(
+                names, [z[f"state1_{i}"] for i in range(len(names))]))
 
 
 def int_audio(case: str):
@@ -128,13 +224,7 @@ def reference_run(case: str) -> dict:
     digests and leaf names, as arrays ready for `np.savez_compressed`."""
     os.environ["WMIX_EXACT"] = "1"
     os.environ.pop("WMIX_FAST", None)
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_allow_excess_precision" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + " --xla_allow_excess_precision=false").strip()
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
+    jax = _jax_on_cpu()
     from wmix_tpu.dsp import floatops
     from wmix_tpu.engine.chain import RecordChain
     assert not floatops.fast_mode()
@@ -163,12 +253,21 @@ def reference_run(case: str) -> dict:
 
 
 def main(argv) -> None:
+    import subprocess
     import time
     sys.path.insert(0, REPO)
     os.makedirs(DATA_DIR, exist_ok=True)
-    for case in argv or list(CASES) + list(INT_CASES):
+    cases = argv or list(CASES) + list(INT_CASES) + [FAST_CASE]
+    for case in cases:
         t0 = time.time()
-        np.savez_compressed(path_of(case), **reference_run(case))
+        if case == FAST_CASE and len(cases) > 1:
+            # fast mode in a process of its own: wmix_tpu reads its mode
+            # when it traces, and keeps the first trace
+            subprocess.run([sys.executable, __file__, case], check=True)
+            continue
+        data = fast_reference_run() if case == FAST_CASE else \
+            reference_run(case)
+        np.savez_compressed(path_of(case), **data)
         print(f"{case}: {os.path.getsize(path_of(case))} bytes, "
               f"{time.time() - t0:.0f} s", flush=True)
 

@@ -726,18 +726,32 @@ aec_package_kernel(Args a) {
 }  // namespace
 
 // Plain C entry for ctypes: ptrs holds the kNumPtrs device pointers in
-// `Args` order.  Launches on `stream` and returns cudaGetLastError().
+// `Args` order, all on CUDA device `device`, and `stream` is a stream of
+// that device.  This library links its own CUDA runtime, whose current
+// device need not be the caller's: the launch makes `device` current,
+// launches on `stream`, restores the device that was current before and
+// returns the first error (the launch's cudaGetLastError() included).
 extern "C" int wmix_aec_package_launch(void* const* ptrs, int n_ptrs,
                                        int batch, int mult, int nlp_mode,
-                                       void* stream) {
-  if (n_ptrs != kNumPtrs || batch < 0 || mult != 2 || nlp_mode != 2)
+                                       int device, void* stream) {
+  if (n_ptrs != kNumPtrs || batch < 0 || mult != 2 || nlp_mode != 2 ||
+      device < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   Args a;
   void** dst = reinterpret_cast<void**>(&a);
   for (int i = 0; i < kNumPtrs; ++i) dst[i] = ptrs[i];
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   aec_package_kernel<<<batch, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* wmix_cuda_error_string(int code) {

@@ -19,6 +19,7 @@ Fast mode, float32 only.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -580,18 +581,24 @@ def package_step(state, near320, xf5r, xf5i, xfw5r, xfw5i, rand, flags,
     ptrs = [ins[k].data_ptr() for k in _INPUTS] + \
         [state[k].data_ptr() for k in STATE_FIELDS] + [out.data_ptr()]
     lib = kernels.load("aec_package")
-    stream = torch.cuda.current_stream(near320.device).cuda_stream
+    # the tensors' device and its current stream, whatever device is
+    # current in this thread: the launch makes that device current in the
+    # library's own CUDA runtime and restores the previous one
+    dev = near320.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.wmix_aec_package_launch(
         (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), B, mult, nlp_mode,
-        ctypes.c_void_p(stream))
+        dev.index, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"aec_package kernel launch failed: CUDA error "
                            f"{rc} ({lib.wmix_cuda_error_string(rc).decode()})")
     package_step.launches += 1
+    package_step.launches_by_device[str(dev)] += 1
     return state, out
 
 
 package_step.launches = 0
+package_step.launches_by_device = collections.Counter()   # "cuda:N" -> n
 
 
 # ------------------------------------------------- engine integration

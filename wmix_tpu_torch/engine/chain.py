@@ -41,6 +41,9 @@ of its own planner; the AGC and VAD are fixed-point already, so a chain
 with both integer backends is integer end to end and its result does not
 depend on the arithmetic mode.
 
+`ShardedRecordChain` splits one batch into `RecordChain` shards by slot
+range, each on a device of its own or all on one.
+
 `WMIX_TRACE_STEPS=1` when the chain is built gives it a `StepTimer`
 (`step_timer`) that times every `run_chunk` against its K packages of
 audio; on the card the step ends with a synchronize, so that it times the
@@ -346,6 +349,84 @@ class RecordChain:
             origin[:, self.zoom_idx]
         return (ChainState(ns_st, aec_st, agc_st, vad_st, st.play_fifo),
                 origin, pkg8k, vflags)
+
+
+class ShardedRecordChain:
+    """N `RecordChain` shards serving one [B] stream batch, shard i over
+    the slots [i * B / N, (i + 1) * B / N) on `devices[i]` (wmix_tpu
+    chain.py:405-466, where it keeps each program under the TPU compile
+    helper's size; here it is how one batch spans several devices).  Each
+    shard has its own planner, and they advance in lockstep: every call
+    ticks all of them, so every shard runs the same plan signature.
+    `devices=None` puts every shard on the default device (the card); the
+    shards then run one after another on it.  `**kw` are `RecordChain`'s
+    keywords, so every backend, geometry and mode it takes is taken.
+
+    Inputs are sliced by slot range and passed to each shard as
+    `RecordChain` takes them (numpy arrays, pinned host tensors, tensors
+    on the shard's device; a tensor on another device is copied).  Every
+    shard's work is enqueued before any output is gathered (a shard's own
+    host reads, the AGC limiter's, still wait on its device), and the
+    outputs come back concatenated on `devices[0]`."""
+
+    def __init__(self, batch: int, freq: int, shards: int = 2,
+                 devices=None, **kw):
+        if shards < 1 or batch % shards:
+            raise ValueError(f"batch {batch} does not split into {shards} "
+                             "equal shards")
+        if devices is None:
+            devices = [None] * shards
+        if len(devices) != shards:
+            raise ValueError(f"{len(devices)} devices for {shards} shards")
+        self.batch = batch
+        self.freq = freq
+        self.shard_b = batch // shards
+        self.chains = [RecordChain(self.shard_b, freq, **kw, device=d)
+                       for d in devices]
+        self.device = self.chains[0].device
+        self.planner = self.chains[0].planner
+
+    @property
+    def state(self) -> list:
+        """The shards' `ChainState`s, in slot order."""
+        return [ch.state for ch in self.chains]
+
+    def shard_ranges(self):
+        """(chain, lo, hi) of every shard: its slots are [lo, hi)."""
+        for i, ch in enumerate(self.chains):
+            yield ch, i * self.shard_b, (i + 1) * self.shard_b
+
+    def _plan_tick(self):
+        out = None
+        for ch in self.chains:
+            out = ch._plan_tick()
+        return out
+
+    def reset_slots(self, slots) -> None:
+        """`RecordChain.reset_slots` of the batch's slots, each passed to
+        its shard."""
+        s = np.atleast_1d(np.asarray(slots, np.int64))
+        for ch, lo, hi in self.shard_ranges():
+            mine = s[(s >= lo) & (s < hi)] - lo
+            if mine.size:
+                ch.reset_slots(mine)
+
+    def _gather(self, outs, dim: int):
+        return tuple(torch.cat([o[j].to(self.device) for o in outs], dim)
+                     for j in range(3))
+
+    def run_chunk(self, mic_chunk, play_chunk):
+        """K packages over the whole batch: [K, B, pkg_len * chn] in, the
+        outputs of `RecordChain.run_chunk` over B out."""
+        return self._gather([ch.run_chunk(mic_chunk[:, lo:hi],
+                                          play_chunk[:, lo:hi])
+                             for ch, lo, hi in self.shard_ranges()], 1)
+
+    def step(self, mic_pkg, play_pkg):
+        """One tick over the whole batch ([B, pkg_len * chn] in), as
+        `RecordChain.step`."""
+        return self._gather([ch.step(mic_pkg[lo:hi], play_pkg[lo:hi])
+                             for ch, lo, hi in self.shard_ranges()], 0)
 
 
 # ------------------------------------------------- state carried across

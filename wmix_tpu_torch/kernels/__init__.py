@@ -81,7 +81,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     if fn is not None:
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = getattr(lib, "wmix_cuda_error_string", None)
     if err is not None:

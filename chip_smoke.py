@@ -5,8 +5,6 @@ chain against itself on the CPU, and prints one JSON result line.
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --sharded-only    # phases 1, 2 and 17 alone
-
 Phases (each prints a line; any failed check raises, so the run exits
 non-zero and prints no result):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -98,7 +96,7 @@ non-zero and prints no result):
  16. the daemon core on the card: EngineBridge(4096, 16000) with 256
      WmixDaemons attached (LoopHal, NS+AEC+AGC+VAD, each its own seeded
      microphone, a record task holding the path open, so one package a
-     tick), 30 ticks of pump(1) per daemon then bridge.tick(): ms per tick
+     tick), 20 ticks of pump(1) per daemon then bridge.tick(): ms per tick
      of the pumps and of bridge.tick against 20 ms, the AEC kernel's
      launches (every steady package of the batch), and every delivered
      package equal to RecordChain(4096, 16000) driven directly with the
@@ -106,7 +104,7 @@ non-zero and prints no result):
      256, measured (largest LSB, packages and daemons beyond 4 LSB: in
      fast mode a last-bit difference of the kernel can flip a VAD
      decision, whose mute moves a package by thousands of LSB), and, in
-     exact mode (12 ticks), equal to the CPU's bridge for every daemon.
+     exact mode (8 ticks), equal to the CPU's bridge for every daemon.
      One inline daemon (16 kHz, all four modules): ms per heartbeat and
      the aten operations of one over 20 packages in fast mode, within 4
      LSB of the same daemon on the CPU, and 12 packages in exact mode
@@ -134,7 +132,6 @@ Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
 11-17, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
-import contextlib
 import copy
 import json
 import os
@@ -681,18 +678,12 @@ def transcendental_mismatches() -> dict:
 
 def phase_exact(aec_package, main_pkg_ms, name_power) -> int:
     """12. exact mode on the card against exact mode on the CPU."""
+    from wmix_tpu_torch.dsp.floatops import mode_env
     from wmix_tpu_torch.engine.checkpoint import _leaves
     N, TIMED = 10, 4
-    old = os.environ.get("WMIX_EXACT")
-    os.environ["WMIX_EXACT"] = "1"
-    try:
+    with mode_env(True):
         got, want, card_chain, cpu_chain, pkg_ms, launches = \
             run_chain_on_card(aec_package, 16000, {}, N, TIMED, seed=30)
-    finally:
-        if old is None:
-            del os.environ["WMIX_EXACT"]
-        else:
-            os.environ["WMIX_EXACT"] = old
     if card_chain.fast or cpu_chain.fast:
         raise AssertionError("phase 12: the chains are not in exact mode")
     if launches != 0 or isinstance(card_chain.state.aec,
@@ -1080,8 +1071,8 @@ def phase_codec_decoders(aec_package, name_power) -> int:
 
 
 # The daemon core (phase 16)
-N_DAEMONS, BRIDGE_CAP, DAEMON_TICKS, INLINE_PKGS = 256, 4096, 30, 20
-EXACT_TICKS, INLINE_EXACT_PKGS = 12, 12
+N_DAEMONS, BRIDGE_CAP, DAEMON_TICKS, INLINE_PKGS = 256, 4096, 20, 20
+EXACT_TICKS, INLINE_EXACT_PKGS = 8, 12
 
 
 def daemon_mic(seed) -> bytes:
@@ -1112,20 +1103,6 @@ def make_daemon(seed, device, bridge=None, **kw):
     if bridge is not None:
         bridge.attach(d)
     return d, hal, got
-
-
-class exact_mode:
-    """WMIX_EXACT=1 while the chains and processors are built inside."""
-
-    def __enter__(self):
-        self.saved = os.environ.get("WMIX_EXACT")
-        os.environ["WMIX_EXACT"] = "1"
-
-    def __exit__(self, *exc):
-        if self.saved is None:
-            os.environ.pop("WMIX_EXACT")
-        else:
-            os.environ["WMIX_EXACT"] = self.saved
 
 
 def run_bridge(capacity, device, ticks=None):
@@ -1257,6 +1234,7 @@ def phase_daemon_core(aec_package, name_power) -> int:
     EngineBridge of the north-star width, one inline daemon, the control
     plane end to end."""
     from wmix_tpu_torch.codecs import wav as wavc
+    from wmix_tpu_torch.dsp.floatops import mode_env
     from wmix_tpu_torch.engine.chain import RecordChain
     from wmix_tpu_torch.service import sysv
 
@@ -1304,7 +1282,7 @@ def phase_daemon_core(aec_package, name_power) -> int:
                              "different package counts")
     fast_vs_cpu = lsb_stats(got, want)
     # ... and in exact mode, gated: every package of every daemon equal
-    with exact_mode():
+    with mode_env(True):
         got_x, _, exact_tick_ms, bridge_x = run_bridge(
             BRIDGE_CAP, None, EXACT_TICKS)
         want_x, _, _, _ = run_bridge(N_DAEMONS, "cpu", EXACT_TICKS)
@@ -1326,7 +1304,7 @@ def phase_daemon_core(aec_package, name_power) -> int:
     if inline_fast["max_lsb"] > LSB:
         raise AssertionError(f"phase 16: inline daemon, card vs CPU "
                              f"{inline_fast['max_lsb']} LSB")
-    with exact_mode():
+    with mode_env(True):
         inl_x, _, _ = inline_run("cuda", INLINE_EXACT_PKGS)
         inl_x_cpu, _, _ = inline_run("cpu", INLINE_EXACT_PKGS)
     check_equal("phase 16 exact inline daemon, card vs CPU", inl_x,
@@ -1418,6 +1396,7 @@ def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
     visible card, or two shards on cuda:0 when there is one card.
     `main_origin` is RecordChain(4096)'s origin over the same packages
     (numpy), `main_pkg_ms` its ms per package."""
+    from wmix_tpu_torch.dsp.floatops import mode_env
     from wmix_tpu_torch.engine.chain import RecordChain, ShardedRecordChain
     from wmix_tpu_torch.engine.checkpoint import _leaves
     from wmix_tpu_torch.multichip import dryrun_multichip
@@ -1466,7 +1445,7 @@ def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
     for mode, kw in (("exact", {}),
                      ("integer", dict(aec_backend="aecm",
                                       ns_backend="nsx"))):
-        with (exact_mode() if mode == "exact" else contextlib.nullcontext()):
+        with mode_env(mode == "exact"):
             sx = ShardedRecordChain(B_SHARD_X, 16000, shards=shards,
                                     devices=devices, **kw)
             ux = RecordChain(B_SHARD_X, 16000, **kw)
@@ -1515,26 +1494,7 @@ def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
     return launches
 
 
-def sharded_only(aec_package, name_power) -> int:
-    """`--sharded-only`: phase 17 alone, beside RecordChain(4096) over the
-    same first 12 packages of phase 3's audio on cuda:0, for a run on
-    several cards that needs no other phase."""
-    from wmix_tpu_torch.engine.chain import RecordChain
-    mic, play = audio(K * CHUNKS, B_MAIN, seed=0)
-    mic_d = torch.from_numpy(mic[:SHARD_PKGS]).cuda()
-    play_d = torch.from_numpy(play[:SHARD_PKGS]).cuda()
-    outs, pkg_ms = timed_steps(RecordChain(B_MAIN, 16000), mic_d, play_d,
-                               SHARD_PKGS, SHARD_TIMED)
-    phase("main_path_short", batch=B_MAIN, packages=SHARD_PKGS,
-          pkg_ms=round(pkg_ms, 3))
-    launches = phase_sharded(aec_package, mic_d, play_d, outs[0], pkg_ms,
-                             name_power)
-    print(json.dumps({"kernels": [{"name": "aec_package",
-                                   "launches_by_phase": {"17": launches}}]}))
-    return 0
-
-
-def main(argv=()) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
@@ -1561,14 +1521,6 @@ def main(argv=()) -> int:
     phase("build", source="wmix_tpu_torch/csrc/aec_package.cu",
           arch="sm_90a", built=log["built"],
           seconds=round(log["seconds"], 3), ptxas=ptxas)
-
-    if list(argv) == ["--sharded-only"]:
-        rc = sharded_only(aec_package, name_power)
-        print(name_power)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return rc
 
     # 3. main path at full size
     mic, play = audio(K * CHUNKS, B_MAIN, seed=0)
@@ -1761,4 +1713,4 @@ def main(argv=()) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

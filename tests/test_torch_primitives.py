@@ -193,7 +193,8 @@ def test_import_is_jax_free():
             "want = ['engine.chain', 'engine.checkpoint', 'engine.mixbus', "
             "'kernels', 'staging', 'config', 'ops.g711', 'ops.mixer', "
             "'service.stream_server', 'service.stream_daemon', "
-            "'utils.trace', 'dsp.nsx', 'dsp.aecm', 'engine.aecm_step', "
+            "'utils.trace', 'utils.turns', 'dsp.nsx', 'dsp.aecm', "
+            "'engine.aecm_step', "
             "'dsp._nsx_tables', 'dsp._aecm_tables', 'codecs.mp3_batch', "
             "'codecs.aac_batch', 'codecs._mp3_dct32', 'codecs._mp3_tables', "
             "'codecs._aac_tables', 'codecs._sbr_tables', "

@@ -6,11 +6,14 @@ tests/test_multichip.py holds wmix_tpu's sharded chain to its unsharded
 one: 16 streams in 8 shards, 2 chunks of K = 4 with the planner
 pre-advanced past the AEC's start-up, in fast mode, with the AEC in the
 package (kernel) layout at 16 kHz and in the ring layout at 8 kHz; a
-slot reset across a shard boundary; `step`.  In exact mode and in the
+slot reset across a shard boundary; `step`; the shards taking turns at
+their device reads.  In exact mode and in the
 integer chain two shards of one stream each give the stored `wmix_tpu`
 outputs and final state of tests/data (no JAX run).  The launch on a
 device other than the current one needs two cards and skips here.
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -78,6 +81,55 @@ def test_inputs_as_tensors_and_step():
             plays[0, k])
         _equal(sh.step(mic, play), one.step(mics[0, k], plays[0, k]),
                f"package {k}")
+
+
+def test_take_turns_issues_every_call_before_any_reads():
+    """Three calls, each issuing three segments with a device read after
+    each: at every read, every other call still running has issued the
+    same segment; the results come back in order, and a call's exception
+    is raised after the others have ended."""
+    from wmix_tpu_torch.utils.turns import read_bool, take_turns
+    log = []
+
+    def call(i, fail=False):
+        def run():
+            for k in range(3):
+                log.append(("issue", i, k))
+                assert read_bool(torch.tensor(True))
+                log.append(("read", i, k))
+                if fail and k == 1:
+                    raise ValueError("shard 1")
+            return i
+        return run
+    assert take_turns([call(i) for i in range(3)]) == [0, 1, 2]
+    for n, (what, i, k) in enumerate(log):
+        if what == "read":
+            assert all(("issue", j, k) in log[:n] for j in range(3)), log
+    log.clear()
+    with pytest.raises(ValueError, match="shard 1"):
+        take_turns([call(0), call(1, fail=True), call(2)])
+    assert ("read", 0, 2) in log and ("read", 2, 2) in log
+
+
+@pytest.mark.parametrize("method", ["step", "run_chunk"])
+def test_shards_take_turns_at_their_reads(method, monkeypatch):
+    """The shards' AGC reads hand the turn on, from a thread of each
+    shard, none of them the caller's, and the outputs still equal the
+    unsharded chain's."""
+    from wmix_tpu_torch.utils import turns
+    mics, plays = _audio(16000, seed=9, k=2, chunks=1)
+    one = RecordChain(BATCH, 16000, device="cpu")
+    sh = ShardedRecordChain(BATCH, 16000, shards=4, devices=["cpu"] * 4)
+    passes = []
+    real = turns._Turns.pass_on
+    monkeypatch.setattr(turns._Turns, "pass_on", lambda self, me: (
+        passes.append((me, threading.get_ident())), real(self, me))[1])
+    mic, play = (mics[0], plays[0]) if method == "run_chunk" else \
+        (mics[0, 0], plays[0, 0])
+    _equal(getattr(sh, method)(mic, play), getattr(one, method)(mic, play))
+    assert {me for me, _t in passes} == {0, 1, 2, 3}
+    threads = {t for _me, t in passes}
+    assert len(threads) == 4 and threading.get_ident() not in threads
 
 
 def test_reset_slots_across_a_shard_boundary():

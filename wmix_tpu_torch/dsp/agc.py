@@ -22,6 +22,7 @@ from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.intops import (I32, I64, add_sat_w16, div_trunc,
                                        downmix, norm_u32, norm_w32, sat_w16,
                                        wrap16)
+from wmix_tpu_torch.utils.turns import read_bool
 
 # kGenFuncTable: y = log2(1+e^x) in Q8 (digital_agc.c:40-57)
 GEN_FUNC_TABLE = np.array([
@@ -483,7 +484,7 @@ def process_digital(st: AgcState, frame, fs: int, table):
     while True:
         gain32 = (g >> z) + 1
         over = _mul32(e12, gain32 * gain32) > lim
-        if not bool(over.any()):
+        if not read_bool(over.any()):
             break
         shrunk = torch.where(g > 8388607, div_trunc(g, 256) * 253,
                              div_trunc(g * 253, 256))

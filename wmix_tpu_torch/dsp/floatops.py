@@ -33,6 +33,7 @@ hence `cdiv`; and so is `tensor / c` on the card, which multiplies by
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -47,6 +48,22 @@ def fast_mode() -> bool:
     default and loses to `WMIX_EXACT`; with a default that is fast already
     it changes nothing here."""
     return os.environ.get("WMIX_EXACT", "") in ("", "0")
+
+
+@contextlib.contextmanager
+def mode_env(exact: bool):
+    """`WMIX_EXACT` set to "1" (exact) or "0" (fast) inside, restored on
+    exit.  A chain or processor reads its mode when it is built, so build
+    it inside."""
+    saved = os.environ.get("WMIX_EXACT")
+    os.environ["WMIX_EXACT"] = "1" if exact else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["WMIX_EXACT"]
+        else:
+            os.environ["WMIX_EXACT"] = saved
 
 
 def is_exact(exact=None) -> bool:

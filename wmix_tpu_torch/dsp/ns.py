@@ -35,6 +35,7 @@ from wmix_tpu_torch.dsp.floatops import (cdiv, divs, fexp, flog, fpow_div,
                                          fsqrt_d, ftanh, is_exact, seq_sum,
                                          seq_sum_multi)
 from wmix_tpu_torch.ops.rdft import rdft_traced
+from wmix_tpu_torch.utils.turns import read_bool
 
 F32 = torch.float32
 I32 = torch.int32
@@ -427,7 +428,7 @@ def _feature_update(st: NsState, magn, M: int, exact: bool):
     # the extraction folds three 1000-bin histograms; exact mode, where
     # that is 1000 sequential adds, computes it only when a stream's
     # window ends (one host read of the countdowns)
-    if exact and not bool((countdown == 0).any()):
+    if exact and not read_bool((countdown == 0).any()):
         return st_hist
     extracted = _feature_parameter_extraction(st_hist, exact)
     fd2 = extracted.feature_data.clone()

@@ -22,6 +22,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -592,11 +593,13 @@ def package_step(state, near320, xf5r, xf5i, xfw5r, xfw5i, rand, flags,
     if rc != 0:
         raise RuntimeError(f"aec_package kernel launch failed: CUDA error "
                            f"{rc} ({lib.wmix_cuda_error_string(rc).decode()})")
-    package_step.launches += 1
-    package_step.launches_by_device[str(dev)] += 1
+    with _count_lock:       # shards launch from threads of their own
+        package_step.launches += 1
+        package_step.launches_by_device[str(dev)] += 1
     return state, out
 
 
+_count_lock = threading.Lock()
 package_step.launches = 0
 package_step.launches_by_device = collections.Counter()   # "cuda:N" -> n
 

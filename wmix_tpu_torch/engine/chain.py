@@ -42,7 +42,9 @@ with both integer backends is integer end to end and its result does not
 depend on the arithmetic mode.
 
 `ShardedRecordChain` splits one batch into `RecordChain` shards by slot
-range, each on a device of its own or all on one.
+range, each on a device of its own or all on one; the shards take turns
+on the host (`utils/turns.py`), so that no shard's device read holds up
+the others' work.
 
 `WMIX_TRACE_STEPS=1` when the chain is built gives it a `StepTimer`
 (`step_timer`) that times every `run_chunk` against its K packages of
@@ -67,6 +69,7 @@ from wmix_tpu_torch.engine import aec_package, aec_step, aecm_step
 from wmix_tpu_torch.engine.aec_plan import AecPlanner
 from wmix_tpu_torch.ops import stepper
 from wmix_tpu_torch.utils import trace
+from wmix_tpu_torch.utils.turns import take_turns
 
 F32 = torch.float32
 I32 = torch.int32
@@ -358,16 +361,21 @@ class ShardedRecordChain:
     helper's size; here it is how one batch spans several devices).  Each
     shard has its own planner, and they advance in lockstep: every call
     ticks all of them, so every shard runs the same plan signature.
-    `devices=None` puts every shard on the default device (the card); the
-    shards then run one after another on it.  `**kw` are `RecordChain`'s
-    keywords, so every backend, geometry and mode it takes is taken.
+    `devices=None` puts every shard on the default device (the card).
+    `**kw` are `RecordChain`'s keywords, so every backend, geometry and
+    mode it takes is taken.
 
-    Inputs are sliced by slot range and passed to each shard as
+    Inputs are sliced by slot range and moved to each shard's device as
     `RecordChain` takes them (numpy arrays, pinned host tensors, tensors
-    on the shard's device; a tensor on another device is copied).  Every
-    shard's work is enqueued before any output is gathered (a shard's own
-    host reads, the AGC limiter's, still wait on its device), and the
-    outputs come back concatenated on `devices[0]`."""
+    on the shard's device; a tensor on another device is copied), in the
+    caller's thread and on its current streams.  The shards then run on
+    the caller's current stream of their devices, taking turns on the host
+    (`utils.turns.take_turns`): a chain reads its device in the middle of
+    a package (the AGC limiter's loop condition, exact NS's window
+    countdown), and a shard hands the turn on before each such read, so
+    every shard's work up to its next read is issued before any shard
+    waits on its device.  The outputs come back concatenated on
+    `devices[0]`."""
 
     def __init__(self, batch: int, freq: int, shards: int = 2,
                  devices=None, **kw):
@@ -411,22 +419,38 @@ class ShardedRecordChain:
             if mine.size:
                 ch.reset_slots(mine)
 
-    def _gather(self, outs, dim: int):
+    def _run(self, method: str, mic, play, dim: int):
+        """`method` of every shard on its slot range of `mic` and `play`
+        (sliced along `dim`), as the class docstring says; the outputs
+        concatenated along `dim` on `devices[0]`."""
+        def call(fn, m, p, stream):
+            if stream is None:
+                return lambda: fn(m, p)
+
+            def on_stream():
+                with torch.cuda.stream(stream):
+                    return fn(m, p)
+            return on_stream
+        calls = []
+        for ch, lo, hi in self.shard_ranges():
+            sl = (slice(None),) * dim + (slice(lo, hi),)
+            stream = torch.cuda.current_stream(ch.device) \
+                if ch.device.type == "cuda" else None
+            calls.append(call(getattr(ch, method), ch._on_device(mic[sl]),
+                              ch._on_device(play[sl]), stream))
+        outs = take_turns(calls)
         return tuple(torch.cat([o[j].to(self.device) for o in outs], dim)
                      for j in range(3))
 
     def run_chunk(self, mic_chunk, play_chunk):
         """K packages over the whole batch: [K, B, pkg_len * chn] in, the
         outputs of `RecordChain.run_chunk` over B out."""
-        return self._gather([ch.run_chunk(mic_chunk[:, lo:hi],
-                                          play_chunk[:, lo:hi])
-                             for ch, lo, hi in self.shard_ranges()], 1)
+        return self._run("run_chunk", mic_chunk, play_chunk, 1)
 
     def step(self, mic_pkg, play_pkg):
         """One tick over the whole batch ([B, pkg_len * chn] in), as
         `RecordChain.step`."""
-        return self._gather([ch.step(mic_pkg[lo:hi], play_pkg[lo:hi])
-                             for ch, lo, hi in self.shard_ranges()], 0)
+        return self._run("step", mic_pkg, play_pkg, 0)
 
 
 # ------------------------------------------------- state carried across

@@ -26,13 +26,12 @@ the shard's width on the same slots and device.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import os
 import sys
 
 import numpy as np
 import torch
 
+from wmix_tpu_torch.dsp.floatops import mode_env
 from wmix_tpu_torch.engine.aec_package import PackageAecState
 from wmix_tpu_torch.engine.chain import RecordChain, ShardedRecordChain
 
@@ -56,21 +55,6 @@ def shard_devices(n_devices: int, device=None) -> list:
         raise RuntimeError(f"dryrun_multichip: {n_devices} CUDA devices "
                            f"wanted, {have} present")
     return [torch.device(f"cuda:{i}") for i in range(n_devices)]
-
-
-@contextlib.contextmanager
-def _mode(name: str):
-    """WMIX_EXACT for the chains built inside (a chain reads its mode when
-    it is built)."""
-    saved = os.environ.get("WMIX_EXACT")
-    os.environ["WMIX_EXACT"] = "1" if name == "exact" else "0"
-    try:
-        yield
-    finally:
-        if saved is None:
-            del os.environ["WMIX_EXACT"]
-        else:
-            os.environ["WMIX_EXACT"] = saved
 
 
 def _advanced(chain, ticks: int):
@@ -132,7 +116,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     plays = (rng.randn(1, batch, PKG) * 5000).astype(np.int16)
     held = {}
     for mode, kw in MODES.items():
-        with _mode(mode):
+        with mode_env(mode == "exact"):
             held[mode] = _compare(devices, mics, plays, 3, mode, kw)
     print(f"dryrun_multichip: {n_devices} devices ({names}), batch {batch}, "
           f"one chunk after start-up, sharded == the chain it is held to, "
@@ -143,7 +127,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     rng = np.random.RandomState(1)
     mics = (rng.randn(3, batch, PKG) * 3000).astype(np.int16)
     plays = (rng.randn(3, batch, PKG) * 5000).astype(np.int16)
-    with _mode("fast"):
+    with mode_env(False):
         held = _compare(devices, mics, plays, 4, "fast", {},
                         kernel_path=True)
     print(f"dryrun_multichip: AEC package path under {n_devices}-way "

@@ -128,9 +128,20 @@ non-zero and prints no result):
      chain at B=1024 over the same shards, 8 packages: equal to the
      unsharded chain on the card, outputs and every state leaf.  With
      two cards or more, dryrun_multichip over all of them
+ 18. parity (wmix_tpu_torch.parity) at B=64 over the first second of the
+     64 scenes of PARITY_r05 (echo / fartalk / noecho / silence x echo
+     gains): the four configurations that must be bit-equal to wmix_tpu
+     (the integer chain, exact mode, AGC alone, VAD alone), each in a
+     worker process of its own (they never launch the kernel), their
+     first-second digests equal to wmix_tpu's stored ones
+     (tests/data/torch_parity_ref.json), every stream; meanwhile, in this
+     process, the fast full chain on the card (the kernel on every steady
+     package) and on the CPU: error_stats of card against CPU, and the
+     packages whose VAD flag differs from wmix_tpu's stored flags and from
+     the CPU's, reported
 Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
-11-17, each counted from 0) and, last, {"ok": true, "device": {...}}.
+11-18, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -1494,6 +1505,65 @@ def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
     return launches
 
 
+# Parity (phase 18): the first second of PARITY_r05's 64 scenes
+B_PARITY, PARITY_S = 64, 1
+
+
+def phase_parity(aec_package, name_power) -> int:
+    """18. The port on the card against wmix_tpu's stored parity digests,
+    and the fast full chain against the port's CPU and wmix_tpu's stored
+    VAD flags."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from wmix_tpu_torch import parity as tp
+    ref = tp.load_json(tp.REF_PATH)
+    t0 = time.perf_counter()
+    workers = len(tp.ZERO_LSB)
+    threads = max(1, (os.cpu_count() or 1) // (workers + 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = {nm: ex.submit(tp.run_config, nm, ref["configs"][nm],
+                              B_PARITY, PARITY_S, "cuda", None, threads)
+                for nm in tp.ZERO_LSB}
+        aec_package.package_step.launches = 0
+        fast = tp.run_config("full_chain", ref["configs"]["full_chain"],
+                             B_PARITY, PARITY_S, "cuda")
+        launches = aec_package.package_step.launches
+        zero = {nm: f.result() for nm, f in futs.items()}
+    bad = {nm: e["vs_wmix_tpu"] for nm, e in zero.items()
+           if not e["vs_wmix_tpu"]["equal"]}
+    if bad:
+        raise AssertionError(f"phase 18: the card is not bit-equal to "
+                             f"wmix_tpu (stream, window): {bad}")
+    if any(e["kernel_launches"] for e in zero.values()):
+        raise AssertionError("phase 18: a bit-equal configuration "
+                             "launched the kernel")
+    steady = fast["packages"] - 4
+    if launches != steady or fast["kernel_launches"] != steady:
+        raise AssertionError(f"phase 18: {launches} kernel launches over "
+                             f"{steady} steady packages")
+    vs_cpu = {k: v for k, v in fast["vs_port_cpu"].items()
+              if k != "per_stream_max_lsb"}
+    phase("parity", card=name_power, batch=B_PARITY, seconds=PARITY_S,
+          scenes="PARITY_r05", equal_to_wmix_tpu=sorted(zero),
+          pkg_ms={nm: e["pkg_ms"] for nm, e in
+                  [*zero.items(), ("full_chain", fast)]},
+          full_chain_vs_port_cpu=vs_cpu,
+          full_chain_streams_over_4_lsb=sum(
+              x > LSB for x in fast["vs_port_cpu"]["per_stream_max_lsb"]),
+          port_cpu_reproduces_stored=fast[
+              "port_cpu_reproduces_stored_cpu_digests"]["equal"],
+          vad_vs_wmix_tpu={k: v for k, v in fast["vad_vs_wmix_tpu"].items()
+                           if k != "per_stream"},
+          port_cpu_vad_vs_wmix_tpu=fast["port_cpu_vad_vs_wmix_tpu"][
+              "differing_packages"],
+          vad_vs_port_cpu=fast["vad_vs_port_cpu"]["differing_packages"],
+          kernel_launches=launches,
+          seconds_taken=round(time.perf_counter() - t0, 1))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -1689,6 +1759,7 @@ def main() -> int:
     by_phase["17"] = phase_sharded(
         aec_package, mic_d, play_d, outs[0][0][:SHARD_PKGS].cpu().numpy(),
         pkg_ms_main, name_power)
+    by_phase["18"] = phase_parity(aec_package, name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{

@@ -208,7 +208,7 @@ def test_import_is_jax_free():
             "'service.core', 'service.daemon', 'service.client', "
             "'service.cli', 'service.engine_bridge', 'multichip', "
             "'ops.mathfft', 'ui', 'ui.bmp', 'ui.fbmap', 'ui.wave', 'tools', "
-            "'tools.rtp_pcm', 'tools.rtp_aac']\n"
+            "'tools.rtp_pcm', 'tools.rtp_aac', 'parity']\n"
             "missing = [w for w in want "
             "if 'wmix_tpu_torch.' + w not in sys.modules]\n"
             "assert not missing, missing\n"
@@ -252,6 +252,10 @@ DEVICE_ENTRY_POINTS = [
     ("dsp.aec", "AecProcessor"),
     ("dsp.nsx", "NsxProcessor"),
     ("dsp.aecm", "AecmProcessor"),
+    ("parity", "port_outputs"),
+    ("parity", "config_outputs"),
+    ("parity", "run_config"),
+    ("parity", "run"),
 ]
 
 

@@ -34,6 +34,7 @@ hence `cdiv`; and so is `tensor / c` on the card, which multiplies by
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 
 import torch
@@ -106,13 +107,28 @@ def ftanh(x):
 
 
 def fsqrt_d(x):
-    """(float)sqrt((double)x)."""
-    return _via_double(torch.sqrt, x)
+    """(float)sqrt((double)x): for float32 `x` the value of sqrtf(x) (a
+    float64 root rounds to float32 innocuously, 53 >= 2 * 24 + 2), which
+    `fsqrtf` gives on every device."""
+    return fsqrtf(x)
 
 
 def fsqrtf(x):
-    """sqrtf(x), correctly rounded in float32."""
-    return torch.sqrt(x)
+    """sqrtf(x), correctly rounded in float32 on every device.  Neither
+    torch's float32 `sqrt` on a large CPU tensor nor the card's is (an ulp
+    off on about 1 % of inputs), and its float64 `sqrt` on a large CPU
+    tensor is not either, so the float64 root rounded to float32 is only
+    within an ulp of sqrtf.  One step to the neighbour beyond the midpoint
+    that `x` passes makes it exact: a midpoint of two float32 values has
+    25 significant bits, so its square is exact in float64."""
+    r = _via_double(torch.sqrt, x)
+    xd, rd = x.to(F64), r.to(F64)
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    mid_up = (rd + up.to(F64)) * 0.5
+    mid_down = (rd + down.to(F64)) * 0.5
+    return torch.where(xd > mid_up * mid_up, up,
+                       torch.where(xd < mid_down * mid_down, down, r))
 
 
 def fcosf(x):

@@ -138,7 +138,13 @@ non-zero and prints no result):
      process, the fast full chain on the card (the kernel on every steady
      package) and on the CPU: error_stats of card against CPU, and the
      packages whose VAD flag differs from wmix_tpu's stored flags and from
-     the CPU's, reported
+     the CPU's, reported; then the AEC alone (aec_only) on the card and
+     on the CPU: the card within AEC_PLAIN_LSB (4) LSB and the CPU within
+     parity.PLAIN_LSB (1) of wmix_tpu's plain-JAX fast path on every
+     sample (the stored first second, tests/data/
+     torch_aec_only_plain_1s.npz; the form tools/aec_parting.py holds the
+     port to), the card against the CPU and the stored port-CPU digests
+     reported; the kernel on every steady package of both (46 each)
 Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
 11-18, each counted from 0) and, last, {"ok": true, "device": {...}}.
@@ -1507,6 +1513,9 @@ def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
 
 # Parity (phase 18): the first second of PARITY_r05's 64 scenes
 B_PARITY, PARITY_S = 64, 1
+# aec_only on the card against wmix_tpu's plain-JAX fast path: the fast
+# chain's gate (ROADMAP), since the card's last bits are not the CPU's
+AEC_PLAIN_LSB = 4
 
 
 def phase_parity(aec_package, name_power) -> int:
@@ -1530,6 +1539,10 @@ def phase_parity(aec_package, name_power) -> int:
         fast = tp.run_config("full_chain", ref["configs"]["full_chain"],
                              B_PARITY, PARITY_S, "cuda")
         launches = aec_package.package_step.launches
+        aec_package.package_step.launches = 0
+        aec = tp.run_config("aec_only", ref["configs"]["aec_only"],
+                            B_PARITY, PARITY_S, "cuda")
+        aec_launches = aec_package.package_step.launches
         zero = {nm: f.result() for nm, f in futs.items()}
     bad = {nm: e["vs_wmix_tpu"] for nm, e in zero.items()
            if not e["vs_wmix_tpu"]["equal"]}
@@ -1543,8 +1556,21 @@ def phase_parity(aec_package, name_power) -> int:
     if launches != steady or fast["kernel_launches"] != steady:
         raise AssertionError(f"phase 18: {launches} kernel launches over "
                              f"{steady} steady packages")
-    vs_cpu = {k: v for k, v in fast["vs_port_cpu"].items()
-              if k != "per_stream_max_lsb"}
+    if aec_launches != steady or aec["kernel_launches"] != steady:
+        raise AssertionError(f"phase 18: aec_only launched the kernel "
+                             f"{aec_launches} times over {steady} steady "
+                             "packages")
+    card_plain = aec["vs_wmix_tpu_plain_first_second"]["max_lsb"]
+    cpu_plain = aec["port_cpu_vs_wmix_tpu_plain_first_second"]["max_lsb"]
+    if card_plain > AEC_PLAIN_LSB or cpu_plain > tp.PLAIN_LSB:
+        raise AssertionError(
+            f"phase 18: aec_only against wmix_tpu's plain-JAX fast path: "
+            f"card {card_plain} LSB (gate {AEC_PLAIN_LSB}), CPU {cpu_plain} "
+            f"LSB (gate {tp.PLAIN_LSB})")
+
+    def brief(stats):
+        return {k: v for k, v in stats.items() if k != "per_stream_max_lsb"}
+    vs_cpu = brief(fast["vs_port_cpu"])
     phase("parity", card=name_power, batch=B_PARITY, seconds=PARITY_S,
           scenes="PARITY_r05", equal_to_wmix_tpu=sorted(zero),
           pkg_ms={nm: e["pkg_ms"] for nm, e in
@@ -1560,8 +1586,23 @@ def phase_parity(aec_package, name_power) -> int:
               "differing_packages"],
           vad_vs_port_cpu=fast["vad_vs_port_cpu"]["differing_packages"],
           kernel_launches=launches,
+          aec_only=dict(
+              vs_wmix_tpu_plain=brief(aec["vs_wmix_tpu_plain_first_second"]),
+              streams_over_1_lsb_vs_plain=sum(
+                  x > 1 for x in aec["vs_wmix_tpu_plain_first_second"][
+                      "per_stream_max_lsb"]),
+              port_cpu_vs_wmix_tpu_plain=brief(
+                  aec["port_cpu_vs_wmix_tpu_plain_first_second"]),
+              vs_port_cpu=brief(aec["vs_port_cpu"]),
+              digests_equal_to_wmix_tpu_plain=aec[
+                  "digests_equal_to_wmix_tpu_plain"],
+              card_equals_stored_cpu_digests=aec[
+                  "device_reproduces_stored_cpu_digests"],
+              port_cpu_reproduces_stored=aec[
+                  "port_cpu_reproduces_stored_cpu_digests"]["equal"],
+              pkg_ms=aec["pkg_ms"], kernel_launches=aec_launches),
           seconds_taken=round(time.perf_counter() - t0, 1))
-    return launches
+    return launches + aec_launches
 
 
 def main() -> int:

@@ -18,6 +18,13 @@ PARITY_r05's 60 s:
     drives it, except the integer chain: under x64 the reference widens
     three AECM state leaves to int64 inside its chunk program, which
     `lax.scan` refuses, so it runs `step` package by package;
+  * the configurations of `PLAIN` also through `wmix_tpu`'s plain-JAX
+    fast path (WMIX_FAST=1, WMIX_PALLAS=0), in a third process: the form
+    the port's fast AEC is held to.  `wmix_tpu`'s Pallas package body, as
+    XLA compiles it on the CPU, takes the two windowed transforms of
+    bit-equal near and error buffers apart in their last bits, which
+    breaks the divergence test's tie while the echo filter is empty
+    (tools/aec_parting.py);
   * through the port's `RecordChain` on the CPU
     (`wmix_tpu_torch.parity.port_outputs`), `--jobs` configurations at a
     time, a process each;
@@ -27,11 +34,19 @@ and writes
   * `PARITY_torch_cpu.json`: parity.py's layout (the port's CPU outputs
     against `wmix_tpu`'s, `error_stats` per configuration), with
     `"backend": "cpu"`, `"reference": "wmix_tpu"` and `reduced`, the cuts
-    (none); per configuration also the packages whose VAD flag differs;
+    (none); per configuration also the packages whose VAD flag differs,
+    and for `PLAIN` a second block, `vs_wmix_tpu_plain`, against the
+    plain-JAX fast path (`reference_modes` names each block's form);
   * `tests/data/torch_parity_ref.json`: the scenes; per configuration its
     length, `wmix_tpu`'s digests where the port must be bit-equal, the
-    port's own CPU digests for the fast configurations, and `wmix_tpu`'s
-    fast `full_chain` VAD flags (`parity.pack_flags`).
+    port's own CPU digests for the fast configurations, `wmix_tpu`'s
+    plain-JAX digests for `PLAIN`, and `wmix_tpu`'s fast `full_chain` VAD
+    flags (`parity.pack_flags`);
+  * `tests/data/torch_aec_only_plain_1s.npz` (`parity.PLAIN_1S_PATH`):
+    the first second of `wmix_tpu`'s plain-JAX `aec_only` outputs, every
+    stream, which the port is held to within 1 LSB on the CPU
+    (tests/test_torch_aec_parting.py) and the card in chip_smoke.py's
+    phase 18.
 
 Both chains' outputs are kept under `.parity_cache/` (git-ignored), keyed
 by configuration, batch and length, so a second run only assembles.  On
@@ -58,6 +73,12 @@ CACHE = os.path.join(REPO, ".parity_cache")
 BATCH, SECONDS = 64, 60      # PARITY_r05's streams and length
 # the wmix_tpu process each configuration runs in
 EXACT_PROCESS = ("int_chain_nsx_aecm", "full_chain_exact")
+# configurations also run through wmix_tpu's plain-JAX fast path
+PLAIN = ("aec_only", "full_chain")
+MODES = {"exact": "x64, WMIX_EXACT=1",
+         "pallas": "x64, WMIX_FAST=1, WMIX_PALLAS=1 (interpret mode)",
+         "plain": "x64, WMIX_FAST=1, WMIX_PALLAS=0 (plain-JAX fast path)"}
+SIDE = {"exact": "wmix_tpu", "pallas": "wmix_tpu", "plain": "wmix_tpu_plain"}
 
 
 def cache_path(side: str, name: str) -> str:
@@ -68,13 +89,13 @@ def scenes():
     return tp.build_streams(BATCH, SECONDS * tp.FREQ, tp.FREQ)
 
 
-def _jax_on_cpu(exact: bool):
-    if exact:
+def _jax_on_cpu(mode: str):
+    if mode == "exact":
         os.environ["WMIX_EXACT"] = "1"
         os.environ.pop("WMIX_FAST", None)
     else:
         os.environ["WMIX_FAST"] = "1"
-        os.environ["WMIX_PALLAS"] = "1"
+        os.environ["WMIX_PALLAS"] = "1" if mode == "pallas" else "0"
         os.environ.pop("WMIX_EXACT", None)
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_allow_excess_precision" not in flags:
@@ -118,15 +139,16 @@ def reference_outputs(name: str):
             np.ascontiguousarray(vflags.T))
 
 
-def reference_process(names) -> None:
-    """Run `names` through `wmix_tpu` (one arithmetic mode) and cache."""
-    _jax_on_cpu(names[0] in EXACT_PROCESS)
+def reference_process(names, mode: str) -> None:
+    """Run `names` through `wmix_tpu` in one mode of `MODES` and cache."""
+    _jax_on_cpu(mode)
     for name in names:
         t0 = time.time()
         out, vflags = reference_outputs(name)
-        np.savez_compressed(cache_path("wmix_tpu", name), out=out,
+        np.savez_compressed(cache_path(SIDE[mode], name), out=out,
                             vflags=vflags)
-        print(f"wmix_tpu {name}: {time.time() - t0:.0f} s", flush=True)
+        print(f"wmix_tpu ({mode}) {name}: {time.time() - t0:.0f} s",
+              flush=True)
 
 
 def port_process(name: str) -> None:
@@ -147,18 +169,21 @@ def load(side: str, name: str):
 
 
 def produce(jobs: int) -> None:
-    """Fill the cache: the two reference processes and `jobs` port
-    processes at a time, side by side."""
+    """Fill the cache: the reference processes (one a mode) and `jobs`
+    port processes at a time, side by side."""
     os.makedirs(CACHE, exist_ok=True)
     names = list(tp.CONFIGS)
     me = [sys.executable, os.path.abspath(__file__)]
     todo = []
-    for group in ([nm for nm in names if nm not in EXACT_PROCESS],
-                  [nm for nm in names if nm in EXACT_PROCESS]):
+    for mode, group in (
+            ("pallas", [nm for nm in names if nm not in EXACT_PROCESS]),
+            ("exact", [nm for nm in names if nm in EXACT_PROCESS]),
+            ("plain", [nm for nm in names if nm in PLAIN])):
         group = [nm for nm in group
-                 if not os.path.exists(cache_path("wmix_tpu", nm))]
+                 if not os.path.exists(cache_path(SIDE[mode], nm))]
         if group:
-            todo.append(me + ["--reference", ",".join(group)])
+            todo.append(me + ["--reference", ",".join(group),
+                              "--mode", mode])
     todo += [me + ["--port", nm] for nm in names
              if not os.path.exists(cache_path("port_cpu", nm))]
     n_ref = sum("--reference" in cmd for cmd in todo)
@@ -190,10 +215,11 @@ def assemble() -> tuple[dict, dict]:
         "freq": tp.FREQ,
         "backend": "cpu",
         "reference": "wmix_tpu",
+        # a configuration's main block, then its second block
         "reference_modes": {
-            nm: ("x64, WMIX_EXACT=1" if nm in EXACT_PROCESS else
-                 "x64, WMIX_FAST=1, WMIX_PALLAS=1 (interpret mode)")
-            for nm in tp.CONFIGS},
+            **{nm: MODES["exact" if nm in EXACT_PROCESS else "pallas"]
+               for nm in tp.CONFIGS},
+            **{f"{nm}.vs_wmix_tpu_plain": MODES["plain"] for nm in PLAIN}},
         "fast_mode": True,
         "pallas": False,
         "batch": BATCH,
@@ -219,6 +245,19 @@ def assemble() -> tuple[dict, dict]:
             entry["port_cpu_digest"] = tp.digest(got)
         if nm == "full_chain":
             entry["wmix_tpu_vad_flags"] = tp.pack_flags(want_flags)
+        if nm in PLAIN:
+            plain, plain_flags = load("wmix_tpu_plain", nm)
+            second = tp.error_stats(got, plain, tp.FREQ)
+            second["vad_vs_wmix_tpu_plain"] = tp.vad_flag_diffs(
+                got_flags, plain_flags)
+            stats["vs_wmix_tpu_plain"] = second
+            stats["wmix_tpu_pallas_vs_plain"] = {
+                k: v for k, v in tp.error_stats(want, plain, tp.FREQ).items()
+                if k != "corr"}
+            entry["wmix_tpu_plain_digest"] = tp.digest(plain)
+            if nm == "aec_only":
+                np.savez_compressed(tp.PLAIN_1S_PATH,
+                                    out=plain[:, :tp.FREQ])
         ref["configs"][nm] = entry
     return cpu, ref
 
@@ -228,10 +267,11 @@ def main(argv=None) -> None:
     ap.add_argument("--jobs", type=int, default=2,
                     help="port configurations run at a time")
     ap.add_argument("--reference", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mode", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.reference:
-        return reference_process(args.reference.split(","))
+        return reference_process(args.reference.split(","), args.mode)
     if args.port:
         return port_process(args.port)
     produce(args.jobs)

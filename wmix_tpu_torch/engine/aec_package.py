@@ -43,6 +43,7 @@ from wmix_tpu_torch.dsp.aec import (
     _sqrt_hanning,
     _weight_curve,
 )
+from wmix_tpu_torch.dsp.floatops import cdiv
 from wmix_tpu_torch.engine import aec_step
 from wmix_tpu_torch.engine.aec_plan import FAR_PRE_BUF_SIZE, AecPlanner
 
@@ -247,11 +248,33 @@ def _mm(x, m):
 
 # ------------------------------------------------------------ plain body
 
+# The two divisions of a constant by a tensor divide once, as the
+# reference and the kernel do: torch runs `c / x` as `reciprocal(x) * c`,
+# two roundings, which differ from one division on about a quarter of
+# float32 inputs.
+_EPS = float(np.float32(1e-10))
+
+
+def error_scale(abs_ef, err_th: float):
+    """ScaleErrorSignal's factor err_th / (|ef| + 1e-10)."""
+    return cdiv(err_th, abs_ef + _EPS)
+
+
+def overdrive_candidate(h_fb_min, nlp_mode: int):
+    """The overdrive a fired minimum sets: max(target_supp /
+    (log(fb_min + 1e-10) + 1e-10), min_overdrive)."""
+    return torch.clamp_min(
+        cdiv(float(TARGET_SUPP[nlp_mode]), torch.log(h_fb_min + _EPS) + _EPS),
+        float(MIN_OVERDRIVE[nlp_mode]))
+
+
 def _block_math(c, st, near64, xf_re_new, xf_im_new, xfw_re_new,
                 xfw_im_new, rand65, f_sel, f_gate, f_upd, mult: int,
-                nlp_mode: int):
+                nlp_mode: int, probe: dict | None = None):
     """One ProcessBlock + NonLinearProcessing (aec_core.c:1143-1351,
-    911-1141) over [B] streams; returns (state dict, output [B, 64])."""
+    911-1141) over [B] streams; returns (state dict, output [B, 64]).
+    `probe`, when given, receives the operands of the block's decisions
+    (tools/aec_parting.py)."""
     P1 = PART_LEN1
     g0, g1 = (float(v) for v in SMOOTHING[mult])
     gp0, gp1 = 0.9, 0.1
@@ -296,12 +319,12 @@ def _block_math(c, st, near64, xf_re_new, xf_im_new, xfw_re_new,
     # ScaleErrorSignal
     mu = 0.6 if mult == 1 else 0.5
     err_th = float(np.float32(2e-6 if mult == 1 else 1.5e-6))
-    eps = float(np.float32(1e-10))
+    eps = _EPS
     denom = x_pow + eps
     ef_re = ef_re / denom
     ef_im = ef_im / denom
     abs_ef = torch.sqrt(ef_re * ef_re + ef_im * ef_im)
-    fac = err_th / (abs_ef + eps)
+    fac = error_scale(abs_ef, err_th)
     big = abs_ef > err_th
     ef_re = torch.where(big, ef_re * fac, ef_re) * mu
     ef_im = torch.where(big, ef_im * fac, ef_im) * mu
@@ -407,6 +430,9 @@ def _block_math(c, st, near64, xf_re_new, xf_im_new, xfw_re_new,
                        torch.where(near1, h_de_avg, v_q75))
     h_fb_low = torch.where(is_min1, torch.where(near1, h_de_avg, h_xd_avg),
                            torch.where(near1, h_de_avg, v_q50))
+    if probe is not None:
+        probe.update(en=en, se_sum=se_sum, sd_sum=sd_sum, h_xd_avg=h_xd_avg,
+                     h_de_avg=h_de_avg, h_fb_low=h_fb_low)
 
     # minimum tracking
     fb_local_prev = st["fb_local_min"]
@@ -424,9 +450,7 @@ def _block_math(c, st, near64, xf_re_new, xf_im_new, xfw_re_new,
     fire = h_min_ctr == 2
     h_new_min = torch.where(fire, 0, h_new_min).to(I32)
     h_min_ctr = torch.where(fire, 0, h_min_ctr).to(I32)
-    od_cand = torch.clamp_min(
-        float(TARGET_SUPP[nlp_mode]) /
-        (torch.log(h_fb_min + eps) + eps), min_od)
+    od_cand = overdrive_candidate(h_fb_min, nlp_mode)
     over_drive = torch.where(fire, od_cand, over_drive)
     od_sm_prev = st["over_drive_sm"]
     over_drive_sm = torch.where(

@@ -19,7 +19,13 @@ configuration of `CONFIGS`:
     (`int_chain_nsx_aecm`, `full_chain_exact`, `agc_only`, `vad_only`);
   * the `digest` of the port's own CPU outputs for the fast
     configurations (`full_chain`, `ns_only`, `aec_only`), and
-    `wmix_tpu`'s fast `full_chain` VAD flags.
+    `wmix_tpu`'s fast `full_chain` VAD flags;
+  * for `aec_only` and `full_chain` the `digest` of `wmix_tpu`'s plain-JAX
+    fast path (WMIX_PALLAS=0), the form the port's fast AEC is held to:
+    `wmix_tpu`'s Pallas form on the CPU breaks a tie of the divergence
+    test that the plain form, the C reference and the port keep
+    (tools/aec_parting.py); and, in `PLAIN_1S_PATH`, the first second of
+    its `aec_only` outputs.
 
 This module runs the port on a device (the card by default; it raises
 without one) and, per configuration:
@@ -32,6 +38,9 @@ without one) and, per configuration:
     not failed on), for `full_chain` the packages whose VAD flag differs
     from `wmix_tpu`'s, and the CPU half's own numbers
     (`PARITY_torch_cpu.json`, port CPU against `wmix_tpu`) beside them;
+  * `aec_only`: the device and the CPU against `wmix_tpu`'s plain-JAX
+    fast path, `error_stats` over the first second (`PLAIN_1S_PATH`) and
+    the windows whose digests equal its stored ones;
   * the AEC kernel's launches (`aec_package.package_step.launches`).
 
 A digest is the first 16 hex characters of a SHA-256 over a stream's
@@ -71,6 +80,12 @@ from wmix_tpu_torch.engine.chain import RecordChain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_PATH = os.path.join(REPO, "tests", "data", "torch_parity_ref.json")
+# the first second of wmix_tpu's plain-JAX fast aec_only, every stream
+PLAIN_1S_PATH = os.path.join(REPO, "tests", "data",
+                             "torch_aec_only_plain_1s.npz")
+# the port's fast AEC against wmix_tpu's plain-JAX fast path: at most this
+# many LSB on every sample (tools/aec_parting.py)
+PLAIN_LSB = 1
 CPU_ARTIFACT = os.path.join(REPO, "PARITY_torch_cpu.json")
 OUT_PATH = os.path.join(REPO, "PARITY_torch_h100.json")
 
@@ -352,6 +367,25 @@ def run_config(name: str, stored: dict, batch: int, seconds: int,
     entry["port_cpu_reproduces_stored_cpu_digests"] = {
         "equal": not bad, "mismatches": len(bad),
         "first_mismatches": bad[:64]}
+    if dev.type != "cpu":
+        bad = digest_mismatches(digest(got), stored["port_cpu_digest"],
+                                full_length)
+        entry["device_reproduces_stored_cpu_digests"] = {
+            "equal": not bad, "mismatches": len(bad)}
+    if name == "aec_only":
+        with np.load(PLAIN_1S_PATH) as z:
+            plain = z["out"][:batch]
+        entry["vs_wmix_tpu_plain_first_second"] = error_stats(
+            got[:, :FREQ], plain, FREQ)
+        entry["port_cpu_vs_wmix_tpu_plain_first_second"] = error_stats(
+            cpu[:, :FREQ], plain, FREQ)
+    if "wmix_tpu_plain_digest" in stored:
+        n = 1 + N_WINDOWS if full_length else 1
+        want = [row[:n] for row in stored["wmix_tpu_plain_digest"][:batch]]
+        entry["digests_equal_to_wmix_tpu_plain"] = dict(compared=batch * n, **{
+            side: sum(g == w for gr, wr in zip(digest(out), want)
+                      for g, w in zip(gr[:n], wr))
+            for side, out in (("device", got), ("cpu", cpu))})
     if "wmix_tpu_vad_flags" in stored:
         want = unpack_flags(stored["wmix_tpu_vad_flags"],
                             len(stored["port_cpu_digest"]),

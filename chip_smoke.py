@@ -145,9 +145,21 @@ non-zero and prints no result):
      torch_aec_only_plain_1s.npz; the form tools/aec_parting.py holds the
      port to), the card against the CPU and the stored port-CPU digests
      reported; the kernel on every steady package of both (46 each)
+ 19. the port's measuring entry points: `wmix_tpu_torch.bench.run_point`
+     in the headline shape (RecordChain(4096, 16000), three planner-only
+     ticks, two warm chunks and 2 timed chunks of K = 25, in this
+     process; the ladder, the stage isolation and the worker are the CPU
+     tests' and the full-size run's), its kernel launches (every package
+     after the first warm chunk's priming one, 50 of them timed) and its
+     first 4 streams against RecordChain(4, device="cpu") driven the same
+     way, within 4 LSB; `graft_entry.entry()`'s fn once, one launch,
+     within 4 LSB of the same package on the CPU;
+     `realtime_bench.bench_ticks(4096, 20, 4, 4)` (every tick delivered,
+     20 launches); `mix_bench.bench(1024, 4, 20)` and `codec_bench`'s
+     quick sizes, no launch; one line of their numbers
 Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
-11-18, each counted from 0) and, last, {"ok": true, "device": {...}}.
+11-19, each counted from 0) and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -1605,6 +1617,83 @@ def phase_parity(aec_package, name_power) -> int:
     return launches + aec_launches
 
 
+BENCH_CHUNKS = 2
+RT_TICKS, RT_WARM, RT_DEPTH = 20, 4, 4
+B_MIX, MIX_SOURCES, MIX_TICKS = 1024, 4, 20
+
+
+def phase_benches(aec_package, name_power) -> int:
+    """19. The port's measuring entry points (`bench`, `graft_entry`,
+    `realtime_bench`, `mix_bench`, `codec_bench`) on the card."""
+    from wmix_tpu_torch import (bench, codec_bench, graft_entry, mix_bench,
+                                realtime_bench)
+    from wmix_tpu_torch.engine.chain import RecordChain
+    t0 = time.perf_counter()
+    aec_package.package_step.launches = 0
+    point, outs, timed = bench.run_point(bench.FULL, B_MAIN, K, BENCH_CHUNKS)
+    bench_launches = aec_package.package_step.launches
+    # every package after the priming one of the first warm chunk
+    want = (2 + BENCH_CHUNKS) * K - 1
+    if timed != BENCH_CHUNKS * K or bench_launches != want:
+        raise AssertionError(f"phase 19: bench launched the kernel "
+                             f"{bench_launches} times ({timed} timed), "
+                             f"{want} ({BENCH_CHUNKS * K}) wanted")
+    # its first 4 streams against the CPU chain driven the same way
+    mic, play = (x[:, :4] for x in bench.bench_audio(B_MAIN, K))
+    cpu = RecordChain(4, 16000, device="cpu")
+    for _ in range(3):
+        cpu._plan_tick()
+    for _ in range(2 + BENCH_CHUNKS):
+        want_outs = cpu.run_chunk(mic, play)
+    bench_lsb = compare_outputs([tuple(o[:, :4].cpu() for o in outs)],
+                                [want_outs])
+
+    aec_package.package_step.launches = 0
+    fn, args = graft_entry.entry()
+    _st, origin, pkg8k, vflags = fn(*args)
+    torch.cuda.synchronize()
+    graft_launches = aec_package.package_step.launches
+    if graft_launches != 1:
+        raise AssertionError(f"phase 19: graft_entry's fn launched the "
+                             f"kernel {graft_launches} times, 1 wanted")
+    cfn, cargs = graft_entry.entry(device="cpu")
+    graft_lsb = compare_outputs([(origin.cpu(), pkg8k.cpu(), vflags.cpu())],
+                                [cfn(*cargs)[1:]])
+    if max(bench_lsb[:2] + graft_lsb[:2]) > LSB:
+        raise AssertionError(f"phase 19: card vs CPU beyond {LSB} LSB "
+                             f"(origin, pkg8k, VAD equal, equal share): "
+                             f"bench {bench_lsb}, graft_entry {graft_lsb}")
+
+    aec_package.package_step.launches = 0
+    rt = realtime_bench.bench_ticks(B_MAIN, RT_TICKS, RT_WARM, RT_DEPTH)
+    rt_launches = aec_package.package_step.launches
+    if rt["delivered"] != RT_TICKS or rt_launches != RT_TICKS + RT_WARM - 4:
+        raise AssertionError(f"phase 19: realtime_bench delivered "
+                             f"{rt['delivered']} of {RT_TICKS} ticks with "
+                             f"{rt_launches} kernel launches")
+    mix = mix_bench.bench(B_MIX, MIX_SOURCES, MIX_TICKS)
+    codec = codec_bench.run(quick=True)
+    if aec_package.package_step.launches != rt_launches:
+        raise AssertionError("phase 19: the mix or codec bench launched "
+                             "the AEC kernel")
+    phase("benches", card=name_power, bench_point=point,
+          bench_kernel_launches=bench_launches, bench_timed_launches=timed,
+          bench_vs_cpu_4_streams=bench_lsb,
+          graft_entry=dict(kernel_launches=graft_launches,
+                           vs_cpu=graft_lsb),
+          realtime={k: rt[k] for k in ("batch", "depth", "n",
+                                       "pump_p50_ms", "pump_p95_ms",
+                                       "pump_max_ms", "overruns",
+                                       "delivered",
+                                       "output_latency_p50_ms")},
+          realtime_kernel_launches=rt_launches, mix=mix,
+          codec={"device": codec["device"],
+                 **{f"{c}_{k}": v["streams"]
+                    for c in ("mp3", "aac") for k, v in codec[c].items()}},
+          seconds_taken=round(time.perf_counter() - t0, 1))
+    return bench_launches + graft_launches + rt_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -1801,6 +1890,7 @@ def main() -> int:
         aec_package, mic_d, play_d, outs[0][0][:SHARD_PKGS].cpu().numpy(),
         pkg_ms_main, name_power)
     by_phase["18"] = phase_parity(aec_package, name_power)
+    by_phase["19"] = phase_benches(aec_package, name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{

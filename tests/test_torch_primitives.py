@@ -208,7 +208,8 @@ def test_import_is_jax_free():
             "'service.core', 'service.daemon', 'service.client', "
             "'service.cli', 'service.engine_bridge', 'multichip', "
             "'ops.mathfft', 'ui', 'ui.bmp', 'ui.fbmap', 'ui.wave', 'tools', "
-            "'tools.rtp_pcm', 'tools.rtp_aac', 'parity']\n"
+            "'tools.rtp_pcm', 'tools.rtp_aac', 'parity', 'bench', "
+            "'graft_entry', 'realtime_bench', 'mix_bench', 'codec_bench']\n"
             "missing = [w for w in want "
             "if 'wmix_tpu_torch.' + w not in sys.modules]\n"
             "assert not missing, missing\n"
@@ -256,6 +257,16 @@ DEVICE_ENTRY_POINTS = [
     ("parity", "config_outputs"),
     ("parity", "run_config"),
     ("parity", "run"),
+    ("bench", "run_point"),
+    ("bench", "measure"),
+    ("graft_entry", "entry"),
+    ("realtime_bench", "bench_ticks"),
+    ("mix_bench", "bench"),
+    ("codec_bench", "bench_synth"),
+    ("codec_bench", "bench_e2e"),
+    ("codec_bench", "bench_aac_fb"),
+    ("codec_bench", "bench_aac_e2e"),
+    ("codec_bench", "run"),
 ]
 
 
@@ -271,6 +282,8 @@ def test_device_defaults_to_the_card(module, name):
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
+    from wmix_tpu_torch import (bench, codec_bench, graft_entry, mix_bench,
+                                realtime_bench)
     from wmix_tpu_torch.codecs import aac_batch, mp3_batch
     from wmix_tpu_torch.device import resolve_device
     from wmix_tpu_torch.dsp import agc, vad
@@ -285,6 +298,16 @@ def test_default_device_raises_without_a_card(monkeypatch):
                   lambda: mp3_batch.Mp3BatchDecoder(2),
                   lambda: aac_batch.BatchedFilterbank(4),
                   lambda: aac_batch.AacBatchDecoder(2),
+                  lambda: bench.measure(bench.FULL, 2, 3, 1),
+                  lambda: bench.run_point(bench.FULL, 2, 3, 1),
+                  graft_entry.entry,
+                  lambda: realtime_bench.bench_ticks(2, 1, 1, 1),
+                  lambda: mix_bench.bench(2, 1, 1),
+                  lambda: codec_bench.bench_synth(2, 1),
+                  lambda: codec_bench.bench_e2e(2, 1),
+                  lambda: codec_bench.bench_aac_fb(2, 1),
+                  lambda: codec_bench.bench_aac_e2e(2, 1),
+                  lambda: codec_bench.run(True),
                   resolve_device):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

@@ -7,6 +7,8 @@ raises.  Nothing moves to the CPU silently; the CPU tests pass
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -27,3 +29,25 @@ def resolve_device(device=None) -> torch.device:
                 f"wmix_tpu_torch: device '{device}' wanted, but only {count} "
                 f"CUDA device(s) are present (cuda:0 to cuda:{count - 1})")
     return device
+
+
+def describe(device: torch.device) -> str:
+    """What a measurement ran on: for a CUDA device the card's name and
+    power limit as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` gives them (a card set below its maximum power
+    runs slower under load), else the device's type."""
+    if device.type != "cuda":
+        return device.type
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{torch.cuda.get_device_name(index)} (nvidia-smi: {e})"
+    if res.returncode != 0:
+        return (f"{torch.cuda.get_device_name(index)} (nvidia-smi: "
+                f"{res.stderr.strip()})")
+    return res.stdout.strip()

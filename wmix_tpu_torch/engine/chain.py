@@ -261,17 +261,22 @@ class RecordChain:
         mic = self._on_device(mic_pkg)
         play = self._on_device(play_pkg)
         add_slot, get_slot, sig, dyn = self._plan_tick()
-        steady = False
-        if self.flags[1] and self.aec_backend == "aec":
-            # the package kernel serves steady 16 kHz fast-mode plans,
-            # as the reference's does
-            steady = self.fast and self.freq == 16000 and \
-                aec_package.is_steady_16k(sig) and \
-                aec_package.is_steady_dyn(dyn)
-            self._ensure_aec_layout(steady, dyn)
+        steady = self._prepare_aec(sig, dyn)
         self.state, origin, pkg8k, vflags = self._package(
             self.state, mic, play, add_slot, get_slot, sig, dyn, steady)
         return origin, pkg8k, vflags
+
+    def _prepare_aec(self, sig, dyn) -> bool:
+        """Whether the package of plan (sig, dyn) runs the kernel, with the
+        AEC state put in the layout that package needs."""
+        if not (self.flags[1] and self.aec_backend == "aec"):
+            return False
+        # the package kernel serves steady 16 kHz fast-mode plans, as the
+        # reference's does
+        steady = self.fast and self.freq == 16000 and \
+            aec_package.is_steady_16k(sig) and aec_package.is_steady_dyn(dyn)
+        self._ensure_aec_layout(steady, dyn)
+        return steady
 
     def run_chunk(self, mic_chunk, play_chunk):
         """K packages: mic_chunk / play_chunk [K, B, pkg_len * chn] int16.

@@ -219,8 +219,21 @@ def test_step_timer_matches_wmix_tpu(monkeypatch):
 
 
 def test_profile_and_annotate_write_a_trace(tmp_path):
-    with trace.profile(str(tmp_path / "prof")) as prof:
-        with trace.annotate("wmix-span"):
-            torch.ones(8).sum()
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    """`trace.profile` turns the program's spans on while it runs, and
+    they appear in its Chrome trace by name."""
+    trace.disable()
+    trace.reset()
+    try:
+        with trace.profile(str(tmp_path / "prof")) as prof:
+            with trace.span("wmix-span", 3):
+                torch.ones(8).sum()
+        with trace.span("after"):       # off again once the profile ends
+            pass
+        assert [iv.name for iv in trace.snapshot()["intervals"]] == \
+            ["wmix-span"]
+    finally:
+        trace.disable()
+        trace.reset()
+    out = tmp_path / "prof" / "trace.json"
+    assert out.stat().st_size > 0 and '"wmix-span"' in out.read_text()
     assert any(e.key == "wmix-span" for e in prof.key_averages())

@@ -45,7 +45,7 @@ Layout mirrors `wmix_tpu`:
              encoder (aacenc) and wav
   native   — the C front-ends' and the stepper's sources and their build
              (system compiler)
-  utils    — trace (StepTimer, OpCounter, torch.profiler wrappers)
+  utils    — trace (spans, StepTimer, OpCounter, the profiler)
   config   — EngineConfig
   staging  — the pinned host buffer ring behind every per-tick copy
   device   — the default-device rule (the card unless the CPU is asked for)

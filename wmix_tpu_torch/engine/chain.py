@@ -49,7 +49,13 @@ the others' work.
 `WMIX_TRACE_STEPS=1` when the chain is built gives it a `StepTimer`
 (`step_timer`) that times every `run_chunk` against its K packages of
 audio; on the card the step ends with a synchronize, so that it times the
-work and not its launches.
+work and not its launches.  With the spans of `utils/trace.py` on, a
+package is the span `chain.step` (the chain's tick as its request) over
+`chain.plan` and one span a stage: `chain.ns` or `chain.nsx`, `chain.aec`
+or `chain.aecm` (the body built, run, its non-finite outputs counted and
+cast), `chain.agc` and `chain.vad`; what `chain.step` holds outside them
+is the chain's own work (the copies in, the FIFO write, the casts, the
+zoom).
 """
 from __future__ import annotations
 
@@ -217,29 +223,30 @@ class RecordChain:
 
     def _plan_tick(self):
         """Host bookkeeping for one tick: FIFO slots + AEC plan."""
-        n = self.fifo_pkgs
-        add_slot = self.play_count
-        self.play_count = (self.play_count + 1) % n
-        c = self.play_count
-        g = c - self.aec_interval_ms // self.interval_ms
-        g = min(max(g, 0), n)
-        g = c - g
-        if g >= n:
-            g -= n
-        elif g < 0:
-            g += n
-        if self.planner is None:
-            sig, dyn = (), {}
-        elif self.aec_backend == "aecm":
-            plan = self.planner.plan_pkg()
-            sig = plan.signature()
-            dyn = aecm_step.pack_dyn(plan)
-        else:
-            plan = self.planner.plan_pkg()
-            sig = plan.signature()
-            dyn = aec_step.pack_dyn(plan, self.part_cap)
-        self.tick += 1
-        return add_slot, g, sig, dyn
+        with trace.span("chain.plan"):
+            n = self.fifo_pkgs
+            add_slot = self.play_count
+            self.play_count = (self.play_count + 1) % n
+            c = self.play_count
+            g = c - self.aec_interval_ms // self.interval_ms
+            g = min(max(g, 0), n)
+            g = c - g
+            if g >= n:
+                g -= n
+            elif g < 0:
+                g += n
+            if self.planner is None:
+                sig, dyn = (), {}
+            elif self.aec_backend == "aecm":
+                plan = self.planner.plan_pkg()
+                sig = plan.signature()
+                dyn = aecm_step.pack_dyn(plan)
+            else:
+                plan = self.planner.plan_pkg()
+                sig = plan.signature()
+                dyn = aec_step.pack_dyn(plan, self.part_cap)
+            self.tick += 1
+            return add_slot, g, sig, dyn
 
     def _on_device(self, x) -> torch.Tensor:
         """`x` as a tensor on the chain's device.  A tensor already there
@@ -258,13 +265,14 @@ class RecordChain:
         `_on_device`).  Returns (origin int16 [B, pkg_len * chn], pkg_8k
         int16 [B, n8k], vad_flags int32 [B]) as tensors on the chain's
         device."""
-        mic = self._on_device(mic_pkg)
-        play = self._on_device(play_pkg)
-        add_slot, get_slot, sig, dyn = self._plan_tick()
-        steady = self._prepare_aec(sig, dyn)
-        self.state, origin, pkg8k, vflags = self._package(
-            self.state, mic, play, add_slot, get_slot, sig, dyn, steady)
-        return origin, pkg8k, vflags
+        with trace.span("chain.step", self.tick):
+            mic = self._on_device(mic_pkg)
+            play = self._on_device(play_pkg)
+            add_slot, get_slot, sig, dyn = self._plan_tick()
+            steady = self._prepare_aec(sig, dyn)
+            self.state, origin, pkg8k, vflags = self._package(
+                self.state, mic, play, add_slot, get_slot, sig, dyn, steady)
+            return origin, pkg8k, vflags
 
     def _prepare_aec(self, sig, dyn) -> bool:
         """Whether the package of plan (sig, dyn) runs the kernel, with the
@@ -306,9 +314,12 @@ class RecordChain:
         x = mic.to(I32)
         ns_st, aec_st, agc_st, vad_st = st.ns, st.aec, st.agc, st.vad
         if ns_on and self.ns_backend == "nsx":
-            ns_st, x = nsx_mod.process_pkg(ns_st, x, chn, self.freq)
+            with trace.span("chain.nsx"):
+                ns_st, x = nsx_mod.process_pkg(ns_st, x, chn, self.freq)
         elif ns_on:
-            ns_st, x = ns_mod.process_pkg(ns_st, x, chn, self.freq, exact)
+            with trace.span("chain.ns"):
+                ns_st, x = ns_mod.process_pkg(ns_st, x, chn, self.freq,
+                                              exact)
 
         # in place: this tick's FIFO slot
         st.play_fifo[:, add_slot] = play.to(F32)
@@ -316,41 +327,45 @@ class RecordChain:
             # the AECM path is integer end to end: int16-valued int32 in
             # and out (the wrapper's AECM branch has no float stage); the
             # stereo quirk as below
-            body = aecm_step.build_pkg_body(sig, self.sub_len,
-                                            self.planner.mult)
-            far = st.play_fifo[:, get_slot, ::chn].to(I32)
-            aec_st, x = body(aec_st, far, x[:, ::chn], dyn)
-            if chn > 1:
-                x = x.repeat_interleave(chn, dim=1)
+            with trace.span("chain.aecm"):
+                body = aecm_step.build_pkg_body(sig, self.sub_len,
+                                                self.planner.mult)
+                far = st.play_fifo[:, get_slot, ::chn].to(I32)
+                aec_st, x = body(aec_st, far, x[:, ::chn], dyn)
+                if chn > 1:
+                    x = x.repeat_interleave(chn, dim=1)
         elif aec_on:
             # aec_process2 stereo quirk: the LEFT channel only goes in
             # and the output is duplicated to every channel
             # (src/webrtc.c:410-483)
-            far = st.play_fifo[:, get_slot, ::chn]
-            near = x[:, ::chn]
-            mult, nlp_mode = self.planner.mult, self.planner.nlp_mode
-            if steady:
-                body = aec_package.build_chain_aec_body(
-                    sig, self.sub_len, mult, nlp_mode)
-            else:
-                body = aec_step.build_pkg_body(sig, self.sub_len, mult,
-                                               nlp_mode, exact)
-            aec_st, out_f = body(aec_st, far, near.to(F32), dyn)
-            self.aec_nonfinite += (~torch.isfinite(out_f)).sum()
-            x = aec_step.cast_out_int16(out_f)
-            if chn > 1:
-                x = x.repeat_interleave(chn, dim=1)
+            with trace.span("chain.aec"):
+                far = st.play_fifo[:, get_slot, ::chn]
+                near = x[:, ::chn]
+                mult, nlp_mode = self.planner.mult, self.planner.nlp_mode
+                if steady:
+                    body = aec_package.build_chain_aec_body(
+                        sig, self.sub_len, mult, nlp_mode)
+                else:
+                    body = aec_step.build_pkg_body(sig, self.sub_len, mult,
+                                                   nlp_mode, exact)
+                aec_st, out_f = body(aec_st, far, near.to(F32), dyn)
+                self.aec_nonfinite += (~torch.isfinite(out_f)).sum()
+                x = aec_step.cast_out_int16(out_f)
+                if chn > 1:
+                    x = x.repeat_interleave(chn, dim=1)
 
         if agc_on:
-            agc_st, x = agc_mod.process_pkg(agc_st, x, chn, self.freq,
-                                            self.agc_gain_db)
+            with trace.span("chain.agc"):
+                agc_st, x = agc_mod.process_pkg(agc_st, x, chn, self.freq,
+                                                self.agc_gain_db)
         vflags = torch.zeros((x.shape[0],), dtype=I32, device=x.device)
         if vad_on:
             # without interval_ms, as the reference calls it: the wrapper's
             # subpackage is 20 ms up to 16 kHz, so a shorter package passes
             # through with the flags unchanged
-            vad_st, x = vad_mod.process(vad_st, x, chn, self.freq)
-            vflags = vad_st.reduce
+            with trace.span("chain.vad"):
+                vad_st, x = vad_mod.process(vad_st, x, chn, self.freq)
+                vflags = vad_st.reduce
 
         origin = x.to(torch.int16)
         pkg8k = origin if self.zoom_idx is None else \

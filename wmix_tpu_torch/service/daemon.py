@@ -163,7 +163,7 @@ def main(argv=None) -> int:
     hal = make_hal(s["hal"])
 
     # WMIX_TRACE=<logdir>: capture a torch.profiler trace for the daemon
-    # lifetime (utils/trace.py)
+    # lifetime, the program's spans in it (utils/trace.py)
     trace_ctx = None
     logdir = os.environ.get("WMIX_TRACE")
     if logdir:

@@ -46,9 +46,25 @@ back-pressure allows in flight.  All copies run on the pump thread's
 stream, behind the tick that made their data.  On the CPU (`device="cpu"`,
 which the caller asks for) there is nothing to pin and the copies are
 plain ones.
+
+Spans (`utils/trace.py`, when on).  `feed_batch` gives each fed tick a
+sequence number, which a fast-lane tick's input block, in-flight entry
+and output block carry, and each of its spans takes as its request:
+`stream_server.feed` (all of `feed_batch`: checks, staging, the copy
+started), `stream_server.pump` (`tick_pipelined`'s step and the start of
+its copies: its end is the tick's launch), `stream_server.deliver` (the
+wait for the tick's copies; the scatter that makes the tick readable
+follows it) and `stream_server.read` (all of the `read_batch` that pops
+it; a `read_batch` that pops no whole block has no request).  A tick's
+stamps are the start of its feed and the ends of the other three:
+fed, launched, delivered, read.  Its pump starts once its feed has
+queued it, its delivery waits on the pump's copies, and its read pops
+what the delivery's scatter queued, so the stamps are in order on any
+clock.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from collections import deque
 from typing import Dict, Optional
@@ -58,6 +74,7 @@ import torch
 
 from wmix_tpu_torch.engine.chain import RecordChain
 from wmix_tpu_torch.staging import PinnedRing
+from wmix_tpu_torch.utils import trace
 
 UPLOAD_SLOTS = 4    # staging buffers of the fast lane; each is free again
                     # as soon as its copy to the card has run
@@ -138,8 +155,9 @@ class StreamServer:
         # tick in slot order (the capture-DMA shape), packages travel as
         # [B, pkg] blocks and never touch per-slot Python queues; mixed
         # use spills blocks into the queues first, preserving order
-        self._block_q: deque = deque()       # (mic_block, play_block)
-        self._out_blocks: deque = deque()    # (origin, pkg8k, vad)
+        self._block_q: deque = deque()       # (mic_block, play_block, seq)
+        self._out_blocks: deque = deque()    # (origin, pkg8k, vad, seq)
+        self._seqs = itertools.count()       # numbers of the fed ticks
         self._pending_pkgs = 0               # per-slot queued packages
         self._fed_all = [(s, 1) for s in range(capacity)]
         self._slots_all = np.arange(capacity, dtype=np.int64)
@@ -222,46 +240,48 @@ class StreamServer:
         client streams hands the engine the same thing, and per-slot
         Python bookkeeping (the feed() loop) has no place in a 20 ms
         budget at a large B."""
-        mic_block = np.asarray(mic_block, np.int16)
-        if play_block is None:
-            play_block = np.zeros_like(mic_block)
-        else:
-            play_block = np.asarray(play_block, np.int16)
-        h = np.asarray(handles, np.int64)
-        want = (h.shape[0], self.pkg_len)
-        if mic_block.shape != want or play_block.shape != want:
-            raise ValueError(f"blocks must be {want} int16, got mic "
-                             f"{mic_block.shape} play {play_block.shape}")
-        slots = h & 0xFFFF
-        if (slots >= self.capacity).any():
-            raise SlotClosed("a handle names a slot beyond the capacity")
-        ok = self._active[slots] & (self._gen[slots] == (h >> 16))
-        if not ok.all():
-            bad = int(h[np.argmin(ok)])
-            raise SlotClosed(f"stream {bad:#x} is closed")
-        with self._lock:
-            if (self._pending_pkgs == 0 and
-                    slots.shape[0] == self.capacity and
-                    np.array_equal(slots, self._slots_all)):
-                # capture-DMA fast lane: the whole batch in slot order.
-                # Start the transfer to the card NOW, from pinned memory,
-                # so it overlaps the rest of the tick; the caller's blocks
-                # are pageable, hence the staging copy.
-                self._block_q.append(
-                    self._in_ring.upload((mic_block, play_block)))
-                return
-            self._spill_blocks_locked()
-            for i in range(slots.shape[0]):
-                s = int(slots[i])
-                self._mic_in[s].append(mic_block[i])
-                self._play_in[s].append(play_block[i])
-            self._pending_pkgs += slots.shape[0]
+        seq = next(self._seqs)
+        with trace.span("stream_server.feed", seq):
+            mic_block = np.asarray(mic_block, np.int16)
+            if play_block is None:
+                play_block = np.zeros_like(mic_block)
+            else:
+                play_block = np.asarray(play_block, np.int16)
+            h = np.asarray(handles, np.int64)
+            want = (h.shape[0], self.pkg_len)
+            if mic_block.shape != want or play_block.shape != want:
+                raise ValueError(f"blocks must be {want} int16, got mic "
+                                 f"{mic_block.shape} play {play_block.shape}")
+            slots = h & 0xFFFF
+            if (slots >= self.capacity).any():
+                raise SlotClosed("a handle names a slot beyond the capacity")
+            ok = self._active[slots] & (self._gen[slots] == (h >> 16))
+            if not ok.all():
+                bad = int(h[np.argmin(ok)])
+                raise SlotClosed(f"stream {bad:#x} is closed")
+            with self._lock:
+                if (self._pending_pkgs == 0 and
+                        slots.shape[0] == self.capacity and
+                        np.array_equal(slots, self._slots_all)):
+                    # capture-DMA fast lane: the whole batch in slot order.
+                    # Start the transfer to the card NOW, from pinned memory,
+                    # so it overlaps the rest of the tick; the caller's blocks
+                    # are pageable, hence the staging copy.
+                    self._block_q.append(
+                        self._in_ring.upload((mic_block, play_block)) + (seq,))
+                    return
+                self._spill_blocks_locked()
+                for i in range(slots.shape[0]):
+                    s = int(slots[i])
+                    self._mic_in[s].append(mic_block[i])
+                    self._play_in[s].append(play_block[i])
+                self._pending_pkgs += slots.shape[0]
 
     def _spill_blocks_locked(self) -> None:
         """Demote queued whole-batch blocks to the per-slot queues (slow
         path for mixed feed()/feed_batch() use; preserves order)."""
         while self._block_q:
-            mic_b, play_b = self._block_q.popleft()
+            mic_b, play_b, _ = self._block_q.popleft()
             # fast-lane blocks live on the device; per-slot queues are host
             mic_b, play_b = _host(mic_b), _host(play_b)
             for s in range(self.capacity):
@@ -274,7 +294,7 @@ class StreamServer:
         """Demote whole-batch output blocks to the per-slot out queues
         (so read() sees fast-lane results)."""
         while self._out_blocks:
-            origin, pkg8k, vad = self._out_blocks.popleft()
+            origin, pkg8k, vad, _ = self._out_blocks.popleft()
             for s in range(self.capacity):
                 if s in self._out:
                     self._out[s].append((origin[s], pkg8k[s], vad[s]))
@@ -294,34 +314,39 @@ class StreamServer:
         [N, pkg] int16, pkg8k [N, n8k] int16, vad [N] int32), the
         fast-lane counterpart of feed_batch.  Returns None unless every
         handle has a package pending."""
-        h = np.asarray(handles, np.int64)
-        slots = h & 0xFFFF
-        with self._lock:
-            if (self._out_blocks and
-                    slots.shape[0] == self.capacity and
-                    np.array_equal(slots, self._slots_all) and
-                    not any(self._out[s] for s in self._out)):
-                return self._out_blocks.popleft()
-            self._spill_out_blocks_locked()
-            if any(not self._out.get(int(s)) for s in slots):
-                return None
-            picks = [self._out[int(s)].pop(0) for s in slots]
-        return (np.stack([p[0] for p in picks]),
-                np.stack([p[1] for p in picks]),
-                np.stack([p[2] for p in picks]))
+        with trace.span("stream_server.read") as sp:
+            h = np.asarray(handles, np.int64)
+            slots = h & 0xFFFF
+            with self._lock:
+                if (self._out_blocks and
+                        slots.shape[0] == self.capacity and
+                        np.array_equal(slots, self._slots_all) and
+                        not any(self._out[s] for s in self._out)):
+                    origin, pkg8k, vad, seq = self._out_blocks.popleft()
+                    if sp is not None:
+                        sp.req = seq
+                    return origin, pkg8k, vad
+                self._spill_out_blocks_locked()
+                if any(not self._out.get(int(s)) for s in slots):
+                    return None
+                picks = [self._out[int(s)].pop(0) for s in slots]
+            return (np.stack([p[0] for p in picks]),
+                    np.stack([p[1] for p in picks]),
+                    np.stack([p[2] for p in picks]))
 
     # -- device pump ----------------------------------------------------
 
     def _gather_one(self):
-        """One tick's input: (mic [B, pkg], play [B, pkg], fed).  The
+        """One tick's input: (mic [B, pkg], play [B, pkg], fed, seq).  The
         fast lane hands back the staged device block as it is, which
-        `RecordChain.step` takes without a copy."""
+        `RecordChain.step` takes without a copy, and its sequence number;
+        a tick gathered from the per-slot queues has none (None)."""
         with self._lock:
             if self._block_q and self._pending_pkgs == 0:
-                mic_b, play_b = self._block_q.popleft()
-                return mic_b, play_b, self._fed_all
+                mic_b, play_b, seq = self._block_q.popleft()
+                return mic_b, play_b, self._fed_all, seq
         mic, play, fed = self._gather(1)
-        return mic[0], play[0], fed
+        return mic[0], play[0], fed, None
 
     def _gather(self, n: int):
         with self._lock:
@@ -342,12 +367,12 @@ class StreamServer:
                 fed.append((slot, take))
         return mic, play, fed
 
-    def _scatter(self, fed, origin, pkg8k, vad):
+    def _scatter(self, fed, origin, pkg8k, vad, seq=None):
         """Deliver host arrays [K, B, ...] to the output queues."""
         with self._lock:
             if fed is self._fed_all:
                 # fast lane: keep the tick's outputs as one block
-                self._out_blocks.append((origin[0], pkg8k[0], vad[0]))
+                self._out_blocks.append((origin[0], pkg8k[0], vad[0], seq))
                 return
             for slot, take in fed:
                 if slot not in self._out:
@@ -369,10 +394,10 @@ class StreamServer:
         delivers nothing, src/wmix.c:608-611).  Must be called from ONE
         pump thread: the chain state is owned by the caller."""
         self._apply_pending_resets()
-        mic, play, fed = self._gather_one()
+        mic, play, fed, seq = self._gather_one()
         origin, pkg8k, vad = self.chain.step(mic, play)
         self._scatter(fed, _host(origin)[None], _host(pkg8k)[None],
-                      _host(vad)[None])
+                      _host(vad)[None], seq)
 
     def tick_pipelined(self, depth: int = 12) -> None:
         """One 20 ms batch step, realtime mode: start this tick's package
@@ -386,11 +411,12 @@ class StreamServer:
             raise ValueError(f"depth {depth} > max_depth {self.max_depth} "
                              "that the output ring was allocated for")
         self._apply_pending_resets()
-        mic, play, fed = self._gather_one()
-        pending = self._out_ring.download(self.chain.step(mic, play))
+        mic, play, fed, seq = self._gather_one()
+        with trace.span("stream_server.pump", seq):
+            pending = self._out_ring.download(self.chain.step(mic, play))
         if self._drainer is not None:
             with self._drain_cv:
-                self._inflight.append((fed, pending))
+                self._inflight.append((fed, pending, seq))
                 self._drain_cv.notify()
                 # backpressure: a drainer that can't keep up means the
                 # device can't sustain the tick rate; surface that as pump
@@ -399,13 +425,14 @@ class StreamServer:
                     self._check_drainer()
                     self._drain_cv.wait(0.005)
             return
-        self._inflight.append((fed, pending))
+        self._inflight.append((fed, pending, seq))
         while len(self._inflight) > depth:
             self._drain_one()
 
-    def _deliver(self, fed, pending) -> None:
-        origin, pkg8k, vad = pending.result()    # waits on the tick's event
-        self._scatter(fed, origin[None], pkg8k[None], vad[None])
+    def _deliver(self, fed, pending, seq) -> None:
+        with trace.span("stream_server.deliver", seq):
+            origin, pkg8k, vad = pending.result()  # waits on the tick's event
+        self._scatter(fed, origin[None], pkg8k[None], vad[None], seq)
 
     def start_drain_thread(self) -> None:
         """Move output delivery off the pump thread: a daemon thread
@@ -424,11 +451,11 @@ class StreamServer:
                         self._drain_cv.wait(0.1)
                     if self._drain_stop and not self._inflight:
                         return
-                    fed, pending = self._inflight.popleft()
+                    fed, pending, seq = self._inflight.popleft()
                     self._drain_busy = True
                     self._drain_cv.notify()
                 try:
-                    self._deliver(fed, pending)
+                    self._deliver(fed, pending, seq)
                 finally:
                     with self._drain_cv:
                         self._drain_busy = False

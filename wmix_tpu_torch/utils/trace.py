@@ -3,12 +3,26 @@
 Port of `wmix_tpu/utils/trace.py`.  The reference's observability is
 printf-level (wmix debug flag); here it is structured:
 
+- `span(name, req=None)`: the program's own spans, placed where the work
+  happens (the chain's stages, the AGC limiter's passes, the device
+  reads of `utils/turns.py`, each served tick's feed, pump, delivery and
+  read).  Off by default (`enable()`, `disable()`): then a span is one
+  check of a module flag and a shared no-op context manager.  On, a span
+  records its name, its start and end on `time.time_ns()`, its thread
+  (`threading.get_ident()`, whose low 32 bits the profiler's runtime
+  events carry), the span it is nested in on that thread, and the
+  request it serves (`req`: a chain's tick, a server's tick sequence
+  number; a span without one takes its parent's), and opens a
+  `torch.profiler.record_function` of its name, so a profiler running
+  at the time shows it.  Spans are kept in memory: `snapshot()` gives
+  totals and intervals, `reset()` clears them.  A span neither
+  launches a kernel, reads the device nor synchronizes.
 - `profile(logdir)`: a context manager around `torch.profiler.profile`
-  (host and, where there is a card, CUDA activities); on exit it writes a
-  Chrome trace, `<logdir>/trace.json`, of everything run inside it and
-  yields the profiler, so `key_averages()` can be read afterwards.
-- `annotate(name)`: a `torch.profiler.record_function` span, so host
-  phases (planning, staging, socket IO) show up by name inside the trace.
+  (host and, where there is a card, CUDA activities) with the spans on
+  for as long as it runs; on exit it writes a Chrome trace,
+  `<logdir>/trace.json`, of everything run inside it, the program's
+  spans included, and yields the profiler, so `key_averages()` can be
+  read afterwards.
 - `StepTimer`: cheap per-step wall-time accounting for a real-time loop:
   records step latencies and summarizes p50/p95/max against the budget.
   The stream daemon's pump runs under one.
@@ -26,9 +40,96 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
+
+
+class Interval(NamedTuple):
+    """One finished span."""
+    name: str
+    start_ns: int           # time.time_ns()
+    end_ns: int
+    thread: int             # threading.get_ident()
+    parent: Optional[str]   # the span it was nested in on its thread
+    req: Optional[int]      # the request it served
+
+
+_on = False                 # process-wide switch of span()
+_intervals: List[Interval] = []
+_local = threading.local()  # .stack: the open spans of this thread
+_record_function = None     # torch.profiler.record_function, once on
+_NO_SPAN = contextlib.nullcontext()     # what `span` returns while off
+
+
+class _Span:
+    __slots__ = ("name", "req", "parent", "rf", "t0")
+
+    def __init__(self, name: str, req):
+        self.name, self.req = name, req
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        if self.req is None and self.parent is not None:
+            self.req = self.parent.req
+        stack.append(self)
+        self.rf = _record_function(self.name)
+        self.rf.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self.rf.__exit__(*exc)
+        _local.stack.pop()
+        _intervals.append(Interval(
+            self.name, self.t0, t1, threading.get_ident(),
+            None if self.parent is None else self.parent.name, self.req))
+        return False
+
+
+def span(name: str, req: Optional[int] = None):
+    """`with span(name) as sp:` records the block as a span while the
+    spans are on (module docstring); `req` names the request it serves.
+    A block that learns its request only inside sets `sp.req` (`sp` is
+    None while the spans are off).  A keyword and not `**attrs`, so that
+    a call with the spans off allocates nothing."""
+    if not _on:
+        return _NO_SPAN
+    return _Span(name, req)
+
+
+def enable() -> None:
+    """Turn the spans on, for every thread of the process."""
+    global _on, _record_function
+    from torch.profiler import record_function
+    _record_function = record_function
+    _on = True
+
+
+def disable() -> None:
+    global _on
+    _on = False
+
+
+def snapshot() -> dict:
+    """What was recorded since the last `reset()`: `intervals` (every
+    finished span, in the order they ended) and `totals` ({name:
+    (seconds, spans)})."""
+    intervals = list(_intervals)
+    totals: dict = {}
+    for iv in intervals:
+        s, n = totals.get(iv.name, (0.0, 0))
+        totals[iv.name] = (s + (iv.end_ns - iv.start_ns) / 1e9, n + 1)
+    return {"intervals": intervals, "totals": totals}
+
+
+def reset() -> None:
+    _intervals.clear()
 
 
 class OpCounter:
@@ -74,25 +175,23 @@ def steps_enabled() -> bool:
 @contextlib.contextmanager
 def profile(logdir: str):
     """Capture a torch.profiler trace into `logdir`/trace.json (open it
-    in chrome://tracing or Perfetto)."""
+    in chrome://tracing or Perfetto), the program's spans on for as long
+    as it runs."""
     import torch
     from torch.profiler import ProfilerActivity
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
+    was_on = _on
+    enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+    finally:
+        if not was_on:
+            disable()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named span inside the trace; next to no cost when no trace is
-    being captured."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
 
 
 @dataclass

@@ -16,6 +16,8 @@ from __future__ import annotations
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from wmix_tpu_torch.utils import trace
+
 _local = threading.local()
 
 
@@ -47,11 +49,13 @@ class _Turns:
 
 def read_bool(t) -> bool:
     """`bool(t)` of a one-element tensor; inside `take_turns` the turn is
-    handed on before the read."""
+    handed on before the read.  The read itself is the span `turns.read`
+    (`utils/trace.py`): the host's wait on the device."""
     turns = getattr(_local, "turns", None)
     if turns is not None:
         turns.pass_on(_local.me)
-    return bool(t)
+    with trace.span("turns.read"):
+        return bool(t)
 
 
 def take_turns(calls) -> list:

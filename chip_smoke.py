@@ -13,8 +13,8 @@ non-zero and prints no result):
   3. main path: RecordChain(4096, 16000) in its defaults (the card,
      NS+AEC+AGC+VAD, AGC 5 dB), 4 chunks of K=25 packages of seeded
      audio; the kernel's launch count over the run must equal the steady
-     packages (96); outputs int16, AEC output finite; steady chunk time
-     and streams = B * audio_s / wall
+     packages (96), the AGC kernel's the packages (100); outputs int16,
+     AEC output finite; steady chunk time and streams = B * audio_s / wall
   4. kernel vs package_body at B=4096 from the adapted state: rel <= 1e-4
      on the output and every float state field, equality on every integer
      state field; CUDA-event times beside the least time the card could
@@ -22,6 +22,11 @@ non-zero and prints no result):
      queued behind one another (device time alone), kernel_call_ms and
      plain_ms one call at a time (median of 20, the host's share of a
      call included)
+  4b. the AGC kernel (csrc/agc.cu, with ptxas's report) vs
+     agc.process_pkg_body at B=4096 from phase 3's AGC state on phase 3's
+     first package: output and every state leaf equal; CUDA-event times
+     as in phase 4 (kernel queued, kernel and plain version a call)
+     beside the least time for the bytes a launch moves
   5. the chain at B=4 on cuda (kernel) and on cpu (plain version), same
      input, 2 chunks x K=25: origin and 8 kHz package within 4 LSB; the
      card's ms per steady package at B=4 beside phase 3's at B=4096
@@ -55,7 +60,7 @@ non-zero and prints no result):
      chain: equal); ms per steady package of each; the stereo chain's
      kernel launches (packages - 4), none at any other geometry
  12. exact mode on the card: RecordChain(4096, 16000) built with
-     WMIX_EXACT=1, 10 packages, no kernel launch; the first 4 streams
+     WMIX_EXACT=1, 10 packages, no AEC kernel launch; the first 4 streams
      against the port's CPU exact chain: equal, outputs and every state
      leaf (were they not, the float64 log/exp/tanh/pow/cos/sin of card and
      CPU are compared on 2^20 inputs each, and only where those differ
@@ -64,7 +69,7 @@ non-zero and prints no result):
  13. the integer chain on the card: RecordChain(4096, 16000) and
      RecordChain(4096, 8000) with aec_backend="aecm", ns_backend="nsx"
      (26 and 12 packages of seeded audio; the 400 ms echo path gives the
-     AECM its first far end at package 21), no kernel launch; the first 4
+     AECM its first far end at package 21), no AEC kernel launch; the first 4
      streams against the port's CPU chain: equal, outputs, VAD flags and
      every state leaf; ms per package beside phase 3's; the aten
      operations of one more package of each chain and of phase 3's chain
@@ -158,8 +163,10 @@ non-zero and prints no result):
      20 launches); `mix_bench.bench(1024, 4, 20)` and `codec_bench`'s
      quick sizes, no launch; one line of their numbers
 Every phase line ends with t_s, the seconds since the script started.
-Then the kernel table as JSON (launches summed over phases 3, 7, 8, 9 and
-11-19, each counted from 0) and, last, {"ok": true, "device": {...}}.
+Then the kernel table as JSON, the AEC package kernel's launches summed
+over phases 3, 7, 8, 9 and 11-19, each counted from 0, and the AGC
+kernel's over phases 3, 4b and 7-19 (phases 3, 7, 8, 11, 12 and 13 hold
+them to one a package), and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -176,6 +183,8 @@ sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from wmix_tpu_torch.dsp import agc  # noqa: E402
 
 T0 = time.perf_counter()
 B_MAIN, K, CHUNKS = 4096, 25, 4
@@ -273,6 +282,37 @@ def cuda_queued_ms(fn, n=20, reps=5) -> float:
     return float(np.median(times))
 
 
+def phase_agc_kernel(st, pkg, freq=16000, gain=5) -> dict:
+    """4b: the AGC kernel against its plain version on the card, and its
+    times beside its byte bound; returns the times."""
+    from wmix_tpu_torch import kernels
+    kernels.load("agc")
+    log = kernels.build_log["agc"]
+    ptxas = [ln.strip() for ln in log["log"].splitlines()
+             if "registers" in ln or "smem" in ln or "spill" in ln]
+    st_k, out_k = agc.process_pkg(st, pkg, 1, freq, gain)
+    st_p, out_p = agc.process_pkg_body(st, pkg, 1, freq, gain)
+    check_equal("agc kernel output", out_k, out_p)
+    for name, a, b in zip(agc.AgcState._fields, st_k, st_p):
+        check_equal(f"agc kernel state {name}", a, b)
+    kernel_ms = cuda_queued_ms(lambda: agc.process_pkg(st, pkg, 1, freq,
+                                                       gain))
+    kernel_call_ms = cuda_median_ms(lambda: agc.process_pkg(st, pkg, 1, freq,
+                                                            gain))
+    plain_ms = cuda_median_ms(lambda: agc.process_pkg_body(st, pkg, 1, freq,
+                                                           gain), n=5, warm=1)
+    moved = sum(t.numel() * t.element_size()
+                for t in (pkg, out_k, *st, *st_k))
+    bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+    phase("agc_kernel_vs_plain", batch=pkg.shape[0], freq=freq,
+          built=log["built"], seconds=round(log["seconds"], 3), ptxas=ptxas,
+          equal=True, kernel_ms=round(kernel_ms, 4),
+          kernel_call_ms=round(kernel_call_ms, 4),
+          plain_ms=round(plain_ms, 4), bound_ms=round(bound_ms, 5),
+          bound_by="bytes", bytes_moved=moved)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
 def check_equal(name, got, want) -> None:
     """Raise unless two tensors or arrays hold the same values."""
     got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
@@ -290,6 +330,7 @@ def phase_checkpoint(aec_package) -> int:
     B7, N = 256, 10
     mic, play = audio(2 * N, B7, seed=5)
     aec_package.package_step.launches = 0
+    agc_launched = agc.launches
     a = RecordChain(B7, 16000)
     a.run_chunk(mic[:N], play[:N])
     if not isinstance(a.state.aec, aec_package.PackageAecState):
@@ -313,6 +354,9 @@ def phase_checkpoint(aec_package) -> int:
     launches = aec_package.package_step.launches
     if launches != 3 * N - 4:
         raise AssertionError(f"phase 7: {launches} launches")
+    if agc.launches - agc_launched != 3 * N:
+        raise AssertionError(f"phase 7: {agc.launches - agc_launched} AGC "
+                             f"kernel launches over {3 * N} packages")
     phase("checkpoint", batch=B7, packages_before=N, packages_after=N,
           outputs_equal=True, snapshot_bytes=len(blob),
           bytes_per_stream=round(len(blob) / B7, 1),
@@ -356,16 +400,19 @@ def phase_server(aec_package, mic, play, chain_outs) -> dict:
         collect(t_to - 1)
 
     aec_package.package_step.launches = 0
+    agc_launched = agc.launches
     srv.start_drain_thread()
     on = StepTimer(budget_ms=20.0)
     run(0, ON_TICKS, DEPTH, on)
     srv.stop_drain_thread()
     launches_on = aec_package.package_step.launches
+    agc_on = agc.launches - agc_launched
     n_on, lat_on = len(blocks), (list(latency_ms), list(latency_ticks))
     off = StepTimer(budget_ms=20.0)
     run(ON_TICKS, ON_TICKS + OFF_TICKS, OFF_DEPTH, off)
     torch.cuda.synchronize()
     launches_off = aec_package.package_step.launches - launches_on
+    agc_off = agc.launches - agc_launched - agc_on
     if n_on != ON_TICKS or len(blocks) != ON_TICKS + OFF_TICKS:
         raise AssertionError(f"phase 8: {n_on} and {len(blocks)} blocks")
     for t, blk in enumerate(blocks):
@@ -375,6 +422,10 @@ def phase_server(aec_package, mic, play, chain_outs) -> dict:
     if launches_on != ON_TICKS - 4 or launches_off != OFF_TICKS:
         raise AssertionError(f"phase 8: {launches_on} and {launches_off} "
                              "kernel launches")
+    if (agc_on, agc_off) != (ON_TICKS, OFF_TICKS):
+        raise AssertionError(f"phase 8: {agc_on} and {agc_off} AGC kernel "
+                             f"launches over {ON_TICKS} and {OFF_TICKS} "
+                             "ticks")
     phase("server", batch=B_MAIN, ticks=ON_TICKS, depth=DEPTH,
           blocks_equal_to_chain=len(blocks), kernel_launches=launches_on,
           pump_drain_thread_on=on.summary(),
@@ -594,7 +645,8 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
     packages of seeded audio (the CPU chain gets the first 4 streams).
     Returns the outputs of those 4 streams from both, both chains, the
     card's ms per package over the last `n_timed`, and the kernel
-    launches."""
+    launches (the AGC kernel's must be one a package where the AGC is
+    on)."""
     from wmix_tpu_torch.engine.chain import RecordChain
     n = freq // 1000 * kw.get("interval_ms", 20) * kw.get("chn", 1)
     rng = np.random.RandomState(seed)
@@ -603,6 +655,7 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
     mic_d = torch.from_numpy(mic).cuda()
     play_d = torch.from_numpy(play).cuda()
     aec_package.package_step.launches = 0
+    agc_launched = agc.launches
     card_chain = RecordChain(B_MAIN, freq, **kw)    # default: the card
     if card_chain.device.type != "cuda":
         raise AssertionError("the chain's default device is not the card")
@@ -616,6 +669,11 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
     torch.cuda.synchronize()
     pkg_ms = (time.perf_counter() - t0) * 1e3 / n_timed
     launches = aec_package.package_step.launches
+    agc_want = n_pkgs if card_chain.flags[2] else 0
+    if agc.launches - agc_launched != agc_want:
+        raise AssertionError(f"{agc.launches - agc_launched} AGC kernel "
+                             f"launches over {n_pkgs} packages, "
+                             f"{agc_want} wanted")
     if int(card_chain.aec_nonfinite):
         raise AssertionError("non-finite AEC output samples")
     cpu_chain = RecordChain(4, freq, device="cpu", **kw)
@@ -1729,6 +1787,7 @@ def main() -> int:
     chain = RecordChain(B_MAIN, 16000)     # the default device: the card
     torch.cuda.synchronize()
     aec_package.package_step.launches = 0
+    agc.launches = 0
     chunk_ms = []
     outs = []
     for c in range(CHUNKS):
@@ -1744,6 +1803,10 @@ def main() -> int:
     if launches != steady_pkgs:
         raise AssertionError(f"kernel launches {launches} != steady "
                              f"packages {steady_pkgs}")
+    agc_by_phase = {"3": agc.launches}
+    if agc.launches != K * CHUNKS:
+        raise AssertionError(f"AGC kernel launches {agc.launches} != "
+                             f"packages {K * CHUNKS}")
     for o, p8, vf in outs:
         if o.dtype != torch.int16 or p8.dtype != torch.int16:
             raise AssertionError("chain outputs are not int16")
@@ -1760,7 +1823,8 @@ def main() -> int:
     audio_s = K * 0.02
     streams = [B_MAIN * audio_s / (ms / 1e3) for ms in steady_ms]
     phase("main_path", batch=B_MAIN, packages=K * CHUNKS,
-          kernel_launches=launches, chunk_ms=[round(x, 3) for x in chunk_ms],
+          kernel_launches=launches, agc_kernel_launches=agc.launches,
+          chunk_ms=[round(x, 3) for x in chunk_ms],
           steady_chunk_ms_median=round(float(np.median(steady_ms)), 3),
           streams_median=round(float(np.median(streams)), 1),
           peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
@@ -1819,6 +1883,10 @@ def main() -> int:
           bound_by=bound_by, bound_share=round(bound_ms / kernel_ms, 4),
           bytes_moved=moved, flop=flop)
 
+    n0 = agc.launches
+    agc_times = phase_agc_kernel(chain.state.agc, mic_d[0].to(torch.int32))
+    agc_by_phase["4b"] = agc.launches - n0
+
     # 5. the chain on cuda (kernel) against the chain on cpu (plain)
     mic4, play4 = audio(2 * K, 4, seed=3)
     res = {}
@@ -1870,27 +1938,38 @@ def main() -> int:
     phase("echo", batch=B_MAIN, near_energy=near_e, out_energy=out_e,
           erle_db=round(10 * np.log10(near_e / out_e), 3))
 
+    def counted(key, fn, *args):
+        """fn(*args), its AGC kernel launches kept under key."""
+        n0 = agc.launches
+        got = fn(*args)
+        agc_by_phase[key] = agc.launches - n0
+        return got
+
     by_phase = {"3": launches}
-    by_phase["7"] = phase_checkpoint(aec_package)
-    by_phase.update(phase_server(aec_package, mic, play, outs))
-    by_phase["9"] = phase_daemon(aec_package, kernels)
-    phase_mixbus()
-    for case, n in phase_geometries(aec_package, pkg_ms_main,
-                                    name_power).items():
+    by_phase["7"] = counted("7", phase_checkpoint, aec_package)
+    by_phase.update(counted("8", phase_server, aec_package, mic, play, outs))
+    by_phase["9"] = counted("9", phase_daemon, aec_package, kernels)
+    counted("10", phase_mixbus)
+    for case, n in counted("11", phase_geometries, aec_package, pkg_ms_main,
+                           name_power).items():
         by_phase[f"11_{case}"] = n
-    by_phase["12"] = phase_exact(aec_package, pkg_ms_main, name_power)
-    by_phase["13"], ops3 = phase_integer(aec_package, chain, pkg_ms_main,
-                                         name_power)
+    by_phase["12"] = counted("12", phase_exact, aec_package, pkg_ms_main,
+                             name_power)
+    by_phase["13"], ops3 = counted("13", phase_integer, aec_package, chain,
+                                   pkg_ms_main, name_power)
     # the host's cost of one launching operation, from phase 3's package
     per_op_ms = pkg_ms_main / ops3["launching"]
-    by_phase["14"] = phase_codec_device(aec_package, per_op_ms, name_power)
-    by_phase["15"] = phase_codec_decoders(aec_package, name_power)
-    by_phase["16"] = phase_daemon_core(aec_package, name_power)
-    by_phase["17"] = phase_sharded(
-        aec_package, mic_d, play_d, outs[0][0][:SHARD_PKGS].cpu().numpy(),
-        pkg_ms_main, name_power)
-    by_phase["18"] = phase_parity(aec_package, name_power)
-    by_phase["19"] = phase_benches(aec_package, name_power)
+    by_phase["14"] = counted("14", phase_codec_device, aec_package,
+                             per_op_ms, name_power)
+    by_phase["15"] = counted("15", phase_codec_decoders, aec_package,
+                             name_power)
+    by_phase["16"] = counted("16", phase_daemon_core, aec_package,
+                             name_power)
+    by_phase["17"] = counted(
+        "17", phase_sharded, aec_package, mic_d, play_d,
+        outs[0][0][:SHARD_PKGS].cpu().numpy(), pkg_ms_main, name_power)
+    by_phase["18"] = counted("18", phase_parity, aec_package, name_power)
+    by_phase["19"] = counted("19", phase_benches, aec_package, name_power)
     launches = sum(by_phase.values())
 
     print(json.dumps({"kernels": [{
@@ -1906,6 +1985,17 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         # no single PyTorch call computes an AEC package
+        "library_ms": None}, {
+        "name": "agc",
+        "route": "cuda",
+        "source": "wmix_tpu_torch/csrc/agc.cu",
+        # wmix_tpu's AGC is plain jnp: no TPU kernel
+        "replaces": None,
+        "launches": sum(agc_by_phase.values()),
+        "launches_by_phase": agc_by_phase,
+        "max_abs_err": 0,
+        **agc_times,
+        "bound_by": "bytes",
         "library_ms": None}]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

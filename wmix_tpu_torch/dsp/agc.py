@@ -7,12 +7,17 @@ capacitor envelope, gain interpolation, speech gate, overload limiting and
 the two-segment gain ramp.  All arithmetic is int32 with C wrap and shift
 semantics (see `intops`); every state leaf carries a leading stream axis.
 
-The per-sample recursions (decimator, high-pass) and the limiter's
-while-loop are Python loops over [B] tensors.
+On CUDA tensors `process_pkg` is one launch of the hand-written kernel
+`csrc/agc.cu`, one thread a stream.  Elsewhere it runs the plain version
+`process_pkg_body`, whose per-sample recursions (decimator, high-pass) and
+limiter while-loop are Python loops over [B] tensors.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -415,6 +420,28 @@ def _process_vad(st: AgcState, samples, nr_samples: int):
 
 # --------------------------------------- ProcessDigital (digital_agc.c:294)
 
+def _limiter(g, env):
+    """Overload limiting over the gated gains g [B, 10] and the subframes'
+    envelopes env [B, 10]: per subframe, while the limited energy exceeds
+    the limit shrink the gain by 253/256 (z from the incoming gain).  A
+    row's shrink depends on that row alone."""
+    z = torch.where(g > 47453132, 16 - norm_w32(g), 10)
+    lim_sh = 2 * (1 - z + 10)
+    lim = torch.where(lim_sh >= 0, 32767 << lim_sh.clamp_min(0),
+                      32767 >> (-lim_sh).clamp_min(0))
+    e12 = (env >> 12) + 1
+    while True:
+        with trace.span("agc.limiter"):     # one span a pass
+            gain32 = (g >> z) + 1
+            over = _mul32(e12, gain32 * gain32) > lim
+            if not read_bool(over.any()):
+                break
+            shrunk = torch.where(g > 8388607, div_trunc(g, 256) * 253,
+                                 div_trunc(g * 253, 256))
+            g = torch.where(over, shrunk, g)
+    return g
+
+
 def process_digital(st: AgcState, frame, fs: int, table):
     """One [B, 10*L] block through the digital AGC (mono, adaptive
     digital, lowLevelSignal=0, no far-end VAD).  table: int32[32] tensor.
@@ -474,24 +501,7 @@ def process_digital(st: AgcState, frame, fs: int, table):
     gains = torch.where((gate > 0)[:, None],
                         torch.cat([gains[:, :1], gated], dim=1), gains)
 
-    # overload limiting: per subframe, while the limited energy exceeds
-    # the limit shrink the gain by 253/256 (z from the incoming gain)
-    g = gains[:, 1:]
-    z = torch.where(g > 47453132, 16 - norm_w32(g), 10)
-    lim_sh = 2 * (1 - z + 10)
-    lim = torch.where(lim_sh >= 0, 32767 << lim_sh.clamp_min(0),
-                      32767 >> (-lim_sh).clamp_min(0))
-    e12 = (env >> 12) + 1
-    while True:
-        with trace.span("agc.limiter"):     # one span a pass
-            gain32 = (g >> z) + 1
-            over = _mul32(e12, gain32 * gain32) > lim
-            if not read_bool(over.any()):
-                break
-            shrunk = torch.where(g > 8388607, div_trunc(g, 256) * 253,
-                                 div_trunc(g * 253, 256))
-            g = torch.where(over, shrunk, g)
-    gains = torch.cat([gains[:, :1], g], dim=1)
+    gains = torch.cat([gains[:, :1], _limiter(gains[:, 1:], env)], dim=1)
 
     # gain reductions 1 ms early: pairwise minimum with the next subframe
     gains = torch.cat([gains[:, 0:1],
@@ -534,7 +544,17 @@ def process_pkg(st: AgcState, pkg, chn: int, freq: int,
                 compression_gain_db: int):
     """One daemon package [B, frame_num * chn], interleaved: truncating
     downmix, subpackages (10 ms up to 16 kHz, 5 ms above) through the mono
-    digital AGC, the result duplicated to every channel."""
+    digital AGC, the result duplicated to every channel.  On CUDA tensors
+    one launch of the hand-written kernel `csrc/agc.cu`; elsewhere the
+    plain version `process_pkg_body`.  Returns (state, out int32)."""
+    if pkg.device.type == "cuda":
+        return _kernel_pkg(st, pkg, chn, freq, compression_gain_db)
+    return process_pkg_body(st, pkg, chn, freq, compression_gain_db)
+
+
+def process_pkg_body(st: AgcState, pkg, chn: int, freq: int,
+                     compression_gain_db: int):
+    """`process_pkg` in plain PyTorch: Python loops over [B] tensors."""
     table = _table_on(compression_gain_db, str(pkg.device))
     pkg_frame = freq // 1000 * (10 if freq <= 16000 else 5)
     x = downmix(pkg.to(I32), chn)
@@ -547,3 +567,72 @@ def process_pkg(st: AgcState, pkg, chn: int, freq: int,
     if chn > 1:
         out = out.repeat_interleave(chn, dim=1)
     return st, wrap16(out)
+
+
+# ------------------------------------------------------------ the kernel
+
+_SUB_LEN = {8000: 80, 16000: 160, 32000: 160}   # samples a subpackage
+_N_SCALAR = len(AgcState._fields) - 1           # the leaves before down_state
+launches = 0                                    # launches of csrc/agc.cu
+launches_by_device = collections.Counter()      # "cuda:N" -> n
+_count_lock = threading.Lock()
+
+
+def _state_views(buf: torch.Tensor, batch: int) -> AgcState:
+    """The kernel's state buffer [21 B] as an AgcState of views: the
+    leaves flattened in field order, one after another."""
+    scalars = buf[:_N_SCALAR * batch].view(_N_SCALAR, batch).unbind(0)
+    return AgcState(*scalars,
+                    down_state=buf[_N_SCALAR * batch:].view(batch, 8))
+
+
+def _kernel_leaf(name: str, t, shape, dev) -> torch.Tensor:
+    if t.device != dev or t.dtype != I32 or tuple(t.shape) != shape:
+        raise ValueError(f"agc kernel: state {name} is {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}, expected "
+                         f"{I32} {shape} on {dev}")
+    return t.contiguous()
+
+
+def _kernel_pkg(st: AgcState, pkg, chn: int, freq: int,
+                compression_gain_db: int):
+    """`process_pkg` on the card: one launch of `csrc/agc.cu` for the
+    whole package.  The input state is only read; the new one is views of
+    one fresh buffer."""
+    global launches
+    sub_len = _SUB_LEN.get(freq)
+    if sub_len is None or chn not in (1, 2) or pkg.dim() != 2:
+        raise ValueError(f"agc kernel: no kernel for freq {freq}, chn {chn}, "
+                         f"a package of shape {tuple(pkg.shape)}")
+    B, n = pkg.shape
+    frames = n // chn
+    if n % chn or frames == 0 or frames % sub_len:
+        raise ValueError(f"agc kernel: {n} samples is not a whole number of "
+                         f"{sub_len}-sample subpackages of {chn} channels")
+    dev = pkg.device
+    x = pkg.to(I32).contiguous()
+    leaves = [_kernel_leaf(f, t, (B,), dev)
+              for f, t in zip(AgcState._fields[:_N_SCALAR], st)]
+    down = _kernel_leaf("down_state", st.down_state, (B, 8), dev)
+    table = _table_on(compression_gain_db, str(dev))
+    out = torch.empty((B, n), dtype=I32, device=dev)
+    buf = torch.empty(((_N_SCALAR + 8) * B,), dtype=I32, device=dev)
+    ptrs = [x.data_ptr(), table.data_ptr(), *(t.data_ptr() for t in leaves),
+            down.data_ptr(), out.data_ptr(), buf.data_ptr()]
+    from wmix_tpu_torch import kernels
+    lib = kernels.load("agc")
+    # the tensors' device and its current stream, whatever device is
+    # current in this thread (as `aec_package.package_step` launches)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with trace.span("agc.kernel"):
+        rc = lib.wmix_agc_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), B, frames, chn,
+            sub_len, dev.index, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"agc kernel launch failed: CUDA error {rc} "
+                           f"({lib.wmix_cuda_error_string(rc).decode()})")
+    with _count_lock:       # shards launch from threads of their own
+        launches += 1
+        launches_by_device[str(dev)] += 1
+    return _state_views(buf, B), out
+

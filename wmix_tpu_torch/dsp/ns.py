@@ -20,6 +20,12 @@ stereo package go through as "high bands"; at 32 kHz the wrapper's 10 ms
 subpackage is 320 samples but the core processes only blockLen = 160, so
 the second half of every subpackage is silence; outputs are truncated
 toward zero on the int16 store.
+
+With the spans of `utils/trace.py` on: `ns.rdft` is each transform of
+`_fft` and `_ifft`, `ns.window_read` exact mode's check of the feature
+window's countdown (its host read of the device), and `ns.features` each
+run of the histogram extraction (every block in fast mode, which selects
+the result; exact mode only where a stream's window ends).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from wmix_tpu_torch.dsp.floatops import (cdiv, divs, fexp, flog, fpow_div,
                                          fsqrt_d, ftanh, is_exact, seq_sum,
                                          seq_sum_multi)
 from wmix_tpu_torch.ops.rdft import rdft_traced
+from wmix_tpu_torch.utils import trace
 from wmix_tpu_torch.utils.turns import read_bool
 
 F32 = torch.float32
@@ -234,7 +241,8 @@ def _set_col(mat: torch.Tensor, k: int, val: torch.Tensor) -> torch.Tensor:
 
 def _fft(win: torch.Tensor, exact: bool):
     """FFT helper (ns_core.c:886-911): rdft + magnitude with +1 floor."""
-    a = rdft_traced(win, exact=exact)
+    with trace.span("ns.rdft"):
+        a = rdft_traced(win, exact=exact)
     n = win.shape[-1]
     M = n // 2 + 1
     zero = torch.zeros_like(a[:, :1])
@@ -252,8 +260,9 @@ def _ifft(real, imag, n: int, exact: bool):
     pairs = torch.stack([real[:, 1:-1], imag[:, 1:-1]], dim=-1).reshape(
         real.shape[0], -1)
     a = torch.cat([real[:, 0:1], real[:, -1:], pairs], dim=1)
-    return rdft_traced(a, inverse=True, exact=exact) * \
-        _c(f32(2.0) / f32(n))
+    with trace.span("ns.rdft"):
+        t = rdft_traced(a, inverse=True, exact=exact)
+    return t * _c(f32(2.0) / f32(n))
 
 
 # ------------------------------------------------ noise estimation (:217-285)
@@ -428,9 +437,13 @@ def _feature_update(st: NsState, magn, M: int, exact: bool):
     # the extraction folds three 1000-bin histograms; exact mode, where
     # that is 1000 sequential adds, computes it only when a stream's
     # window ends (one host read of the countdowns)
-    if exact and not read_bool((countdown == 0).any()):
-        return st_hist
-    extracted = _feature_parameter_extraction(st_hist, exact)
+    if exact:
+        with trace.span("ns.window_read"):
+            window_ends = read_bool((countdown == 0).any())
+        if not window_ends:
+            return st_hist
+    with trace.span("ns.features"):
+        extracted = _feature_parameter_extraction(st_hist, exact)
     fd2 = extracted.feature_data.clone()
     fd2[:, 6] = divs(fd2[:, 6], float(MODEL_UPDATE_WINDOW))
     fd2[:, 5] = 0.5 * (fd2[:, 6] + fd2[:, 5])

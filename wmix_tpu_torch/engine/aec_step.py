@@ -10,6 +10,10 @@ packages run the package kernel (`engine/aec_package.py`).
 In place: ring writes and far-partition stores update the state tensors
 they are given (the reference's functional updates would copy a
 [B, part_cap, 130] store per extraction).
+
+With the spans of `utils/trace.py` on, each block is the span `aec.block`
+(the block's math and the ring write of its output; the chain's tick is
+its request).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from wmix_tpu_torch.engine.aec_plan import (
     AecPlanner,
     PkgPlan,
 )
+from wmix_tpu_torch.utils import trace
 
 F32 = torch.float32
 
@@ -123,13 +128,16 @@ def build_pkg_body(signature, sub_len: int, mult: int, nlp_mode: int,
                 for _ in blocks_sig:
                     slot = int(dyn["blk_far"][bi])
                     flags = dyn["blk_flags"][bi]
-                    dev, out64 = process_block_kernel(
-                        dev, st.far_parts[:, slot], st.farw_parts[:, slot],
-                        ring_read(st.near_fr, dyn["blk_near"][bi], PART_LEN),
-                        dyn["blk_rand"][bi], int(dyn["blk_xf"][bi]),
-                        mult, nlp_mode, bool(flags[0]), bool(flags[1]),
-                        bool(flags[2]), exact)
-                    ring_write_(st.out_fr, dyn["blk_out"][bi], out64)
+                    with trace.span("aec.block"):
+                        dev, out64 = process_block_kernel(
+                            dev, st.far_parts[:, slot],
+                            st.farw_parts[:, slot],
+                            ring_read(st.near_fr, dyn["blk_near"][bi],
+                                      PART_LEN),
+                            dyn["blk_rand"][bi], int(dyn["blk_xf"][bi]),
+                            mult, nlp_mode, bool(flags[0]), bool(flags[1]),
+                            bool(flags[2]), exact)
+                        ring_write_(st.out_fr, dyn["blk_out"][bi], out64)
                     bi += 1
                 sub_out.append(ring_read(st.out_fr, dyn["frame_out"][fi],
                                          FRAME_LEN))

@@ -4,10 +4,12 @@ Port of `wmix_tpu/utils/trace.py`.  The reference's observability is
 printf-level (wmix debug flag); here it is structured:
 
 - `span(name, req=None)`: the program's own spans, placed where the work
-  happens (the chain's stages, the AGC limiter's passes, the device
-  reads of `utils/turns.py`, each served tick's feed, pump, delivery and
-  read).  Off by default (`enable()`, `disable()`): then a span is one
-  check of a module flag and a shared no-op context manager.  On, a span
+  happens (the chain's stages, the AGC limiter's passes and kernel
+  launch, the exact-layout AEC's blocks, the NS's transforms, window
+  check and feature extraction, the device reads of `utils/turns.py`,
+  each served tick's feed, pump, delivery and read).  Off by default
+  (`enable()`, `disable()`): then a span is one check of a module flag
+  and a shared no-op context manager.  On, a span
   records its name, its start and end on `time.time_ns()`, its thread
   (`threading.get_ident()`, whose low 32 bits the profiler's runtime
   events carry), the span it is nested in on that thread, and the

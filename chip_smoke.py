@@ -13,7 +13,7 @@ non-zero and prints no result):
   3. main path: RecordChain(4096, 16000) in its defaults (the card,
      NS+AEC+AGC+VAD, AGC 5 dB), 4 chunks of K=25 packages of seeded
      audio; the kernel's launch count over the run must equal the steady
-     packages (96), the AGC kernel's the packages (100); outputs int16,
+     packages (96), the AGC and VAD kernels' the packages (100); outputs int16,
      AEC output finite; steady chunk time and streams = B * audio_s / wall
   4. kernel vs package_body at B=4096 from the adapted state: rel <= 1e-4
      on the output and every float state field, equality on every integer
@@ -27,6 +27,9 @@ non-zero and prints no result):
      first package: output and every state leaf equal; CUDA-event times
      as in phase 4 (kernel queued, kernel and plain version a call)
      beside the least time for the bytes a launch moves
+  4c. the VAD kernel (csrc/vad.cu, with ptxas's report) vs
+     vad.process_body at B=4096 from phase 3's VAD state on phase 3's
+     first package: output and every state leaf equal; times as in 4b
   5. the chain at B=4 on cuda (kernel) and on cpu (plain version), same
      input, 2 chunks x K=25: origin and 8 kHz package within 4 LSB; the
      card's ms per steady package at B=4 beside phase 3's at B=4096
@@ -165,8 +168,9 @@ non-zero and prints no result):
 Every phase line ends with t_s, the seconds since the script started.
 Then the kernel table as JSON, the AEC package kernel's launches summed
 over phases 3, 7, 8, 9 and 11-19, each counted from 0, and the AGC
-kernel's over phases 3, 4b and 7-19 (phases 3, 7, 8, 11, 12 and 13 hold
-them to one a package), and, last, {"ok": true, "device": {...}}.
+kernel's over phases 3, 4b and 7-19 and the VAD kernel's over phases 3,
+4c and 7-19 (phases 3, 7, 8, 11, 12 and 13 hold each to one a package),
+and, last, {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -185,6 +189,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from wmix_tpu_torch.dsp import agc  # noqa: E402
+from wmix_tpu_torch.dsp import vad as vad_mod  # noqa: E402
 
 T0 = time.perf_counter()
 B_MAIN, K, CHUNKS = 4096, 25, 4
@@ -282,29 +287,27 @@ def cuda_queued_ms(fn, n=20, reps=5) -> float:
     return float(np.median(times))
 
 
-def phase_agc_kernel(st, pkg, freq=16000, gain=5) -> dict:
-    """4b: the AGC kernel against its plain version on the card, and its
+def phase_stage_kernel(name, fields, kernel, plain, st, pkg) -> dict:
+    """4b, 4c: a stage's kernel (csrc/<name>.cu, `kernel(st, pkg)`)
+    against its plain version on the card from the state `st`, and its
     times beside its byte bound; returns the times."""
     from wmix_tpu_torch import kernels
-    kernels.load("agc")
-    log = kernels.build_log["agc"]
+    kernels.load(name)
+    log = kernels.build_log[name]
     ptxas = [ln.strip() for ln in log["log"].splitlines()
              if "registers" in ln or "smem" in ln or "spill" in ln]
-    st_k, out_k = agc.process_pkg(st, pkg, 1, freq, gain)
-    st_p, out_p = agc.process_pkg_body(st, pkg, 1, freq, gain)
-    check_equal("agc kernel output", out_k, out_p)
-    for name, a, b in zip(agc.AgcState._fields, st_k, st_p):
-        check_equal(f"agc kernel state {name}", a, b)
-    kernel_ms = cuda_queued_ms(lambda: agc.process_pkg(st, pkg, 1, freq,
-                                                       gain))
-    kernel_call_ms = cuda_median_ms(lambda: agc.process_pkg(st, pkg, 1, freq,
-                                                            gain))
-    plain_ms = cuda_median_ms(lambda: agc.process_pkg_body(st, pkg, 1, freq,
-                                                           gain), n=5, warm=1)
+    st_k, out_k = kernel(st, pkg)
+    st_p, out_p = plain(st, pkg)
+    check_equal(f"{name} kernel output", out_k, out_p)
+    for field, a, b in zip(fields, st_k, st_p):
+        check_equal(f"{name} kernel state {field}", a, b)
+    kernel_ms = cuda_queued_ms(lambda: kernel(st, pkg))
+    kernel_call_ms = cuda_median_ms(lambda: kernel(st, pkg))
+    plain_ms = cuda_median_ms(lambda: plain(st, pkg), n=5, warm=1)
     moved = sum(t.numel() * t.element_size()
                 for t in (pkg, out_k, *st, *st_k))
     bound_ms = moved / PEAK_BYTES_PER_S * 1e3
-    phase("agc_kernel_vs_plain", batch=pkg.shape[0], freq=freq,
+    phase(f"{name}_kernel_vs_plain", batch=pkg.shape[0],
           built=log["built"], seconds=round(log["seconds"], 3), ptxas=ptxas,
           equal=True, kernel_ms=round(kernel_ms, 4),
           kernel_call_ms=round(kernel_call_ms, 4),
@@ -330,7 +333,7 @@ def phase_checkpoint(aec_package) -> int:
     B7, N = 256, 10
     mic, play = audio(2 * N, B7, seed=5)
     aec_package.package_step.launches = 0
-    agc_launched = agc.launches
+    agc_launched, vad_launched = agc.launches, vad_mod.launches
     a = RecordChain(B7, 16000)
     a.run_chunk(mic[:N], play[:N])
     if not isinstance(a.state.aec, aec_package.PackageAecState):
@@ -357,6 +360,9 @@ def phase_checkpoint(aec_package) -> int:
     if agc.launches - agc_launched != 3 * N:
         raise AssertionError(f"phase 7: {agc.launches - agc_launched} AGC "
                              f"kernel launches over {3 * N} packages")
+    if vad_mod.launches - vad_launched != 3 * N:
+        raise AssertionError(f"phase 7: {vad_mod.launches - vad_launched} "
+                             f"VAD kernel launches over {3 * N} packages")
     phase("checkpoint", batch=B7, packages_before=N, packages_after=N,
           outputs_equal=True, snapshot_bytes=len(blob),
           bytes_per_stream=round(len(blob) / B7, 1),
@@ -400,19 +406,21 @@ def phase_server(aec_package, mic, play, chain_outs) -> dict:
         collect(t_to - 1)
 
     aec_package.package_step.launches = 0
-    agc_launched = agc.launches
+    agc_launched, vad_launched = agc.launches, vad_mod.launches
     srv.start_drain_thread()
     on = StepTimer(budget_ms=20.0)
     run(0, ON_TICKS, DEPTH, on)
     srv.stop_drain_thread()
     launches_on = aec_package.package_step.launches
     agc_on = agc.launches - agc_launched
+    vad_on = vad_mod.launches - vad_launched
     n_on, lat_on = len(blocks), (list(latency_ms), list(latency_ticks))
     off = StepTimer(budget_ms=20.0)
     run(ON_TICKS, ON_TICKS + OFF_TICKS, OFF_DEPTH, off)
     torch.cuda.synchronize()
     launches_off = aec_package.package_step.launches - launches_on
     agc_off = agc.launches - agc_launched - agc_on
+    vad_off = vad_mod.launches - vad_launched - vad_on
     if n_on != ON_TICKS or len(blocks) != ON_TICKS + OFF_TICKS:
         raise AssertionError(f"phase 8: {n_on} and {len(blocks)} blocks")
     for t, blk in enumerate(blocks):
@@ -424,6 +432,10 @@ def phase_server(aec_package, mic, play, chain_outs) -> dict:
                              "kernel launches")
     if (agc_on, agc_off) != (ON_TICKS, OFF_TICKS):
         raise AssertionError(f"phase 8: {agc_on} and {agc_off} AGC kernel "
+                             f"launches over {ON_TICKS} and {OFF_TICKS} "
+                             "ticks")
+    if (vad_on, vad_off) != (ON_TICKS, OFF_TICKS):
+        raise AssertionError(f"phase 8: {vad_on} and {vad_off} VAD kernel "
                              f"launches over {ON_TICKS} and {OFF_TICKS} "
                              "ticks")
     phase("server", batch=B_MAIN, ticks=ON_TICKS, depth=DEPTH,
@@ -645,8 +657,8 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
     packages of seeded audio (the CPU chain gets the first 4 streams).
     Returns the outputs of those 4 streams from both, both chains, the
     card's ms per package over the last `n_timed`, and the kernel
-    launches (the AGC kernel's must be one a package where the AGC is
-    on)."""
+    launches (the AGC and VAD kernels' must be one a package where their
+    stage is on)."""
     from wmix_tpu_torch.engine.chain import RecordChain
     n = freq // 1000 * kw.get("interval_ms", 20) * kw.get("chn", 1)
     rng = np.random.RandomState(seed)
@@ -655,7 +667,7 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
     mic_d = torch.from_numpy(mic).cuda()
     play_d = torch.from_numpy(play).cuda()
     aec_package.package_step.launches = 0
-    agc_launched = agc.launches
+    agc_launched, vad_launched = agc.launches, vad_mod.launches
     card_chain = RecordChain(B_MAIN, freq, **kw)    # default: the card
     if card_chain.device.type != "cuda":
         raise AssertionError("the chain's default device is not the card")
@@ -674,6 +686,11 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
         raise AssertionError(f"{agc.launches - agc_launched} AGC kernel "
                              f"launches over {n_pkgs} packages, "
                              f"{agc_want} wanted")
+    vad_want = n_pkgs if card_chain.flags[3] else 0
+    if vad_mod.launches - vad_launched != vad_want:
+        raise AssertionError(f"{vad_mod.launches - vad_launched} VAD kernel "
+                             f"launches over {n_pkgs} packages, "
+                             f"{vad_want} wanted")
     if int(card_chain.aec_nonfinite):
         raise AssertionError("non-finite AEC output samples")
     cpu_chain = RecordChain(4, freq, device="cpu", **kw)
@@ -1787,7 +1804,7 @@ def main() -> int:
     chain = RecordChain(B_MAIN, 16000)     # the default device: the card
     torch.cuda.synchronize()
     aec_package.package_step.launches = 0
-    agc.launches = 0
+    agc.launches = vad_mod.launches = 0
     chunk_ms = []
     outs = []
     for c in range(CHUNKS):
@@ -1804,9 +1821,11 @@ def main() -> int:
         raise AssertionError(f"kernel launches {launches} != steady "
                              f"packages {steady_pkgs}")
     agc_by_phase = {"3": agc.launches}
-    if agc.launches != K * CHUNKS:
-        raise AssertionError(f"AGC kernel launches {agc.launches} != "
-                             f"packages {K * CHUNKS}")
+    vad_by_phase = {"3": vad_mod.launches}
+    if agc.launches != K * CHUNKS or vad_mod.launches != K * CHUNKS:
+        raise AssertionError(f"AGC and VAD kernel launches {agc.launches} "
+                             f"and {vad_mod.launches} != packages "
+                             f"{K * CHUNKS}")
     for o, p8, vf in outs:
         if o.dtype != torch.int16 or p8.dtype != torch.int16:
             raise AssertionError("chain outputs are not int16")
@@ -1824,6 +1843,7 @@ def main() -> int:
     streams = [B_MAIN * audio_s / (ms / 1e3) for ms in steady_ms]
     phase("main_path", batch=B_MAIN, packages=K * CHUNKS,
           kernel_launches=launches, agc_kernel_launches=agc.launches,
+          vad_kernel_launches=vad_mod.launches,
           chunk_ms=[round(x, 3) for x in chunk_ms],
           steady_chunk_ms_median=round(float(np.median(steady_ms)), 3),
           streams_median=round(float(np.median(streams)), 1),
@@ -1884,8 +1904,20 @@ def main() -> int:
           bytes_moved=moved, flop=flop)
 
     n0 = agc.launches
-    agc_times = phase_agc_kernel(chain.state.agc, mic_d[0].to(torch.int32))
+    pkg0 = mic_d[0].to(torch.int32)
+    agc_times = phase_stage_kernel(
+        "agc", agc.AgcState._fields,
+        lambda st, x: agc.process_pkg(st, x, 1, 16000, 5),
+        lambda st, x: agc.process_pkg_body(st, x, 1, 16000, 5),
+        chain.state.agc, pkg0)
     agc_by_phase["4b"] = agc.launches - n0
+    n0 = vad_mod.launches
+    vad_times = phase_stage_kernel(
+        "vad", vad_mod.VadState._fields,
+        lambda st, x: vad_mod.process(st, x, 1, 16000),
+        lambda st, x: vad_mod.process_body(st, x, 1, 16000),
+        chain.state.vad, pkg0)
+    vad_by_phase["4c"] = vad_mod.launches - n0
 
     # 5. the chain on cuda (kernel) against the chain on cpu (plain)
     mic4, play4 = audio(2 * K, 4, seed=3)
@@ -1939,10 +1971,11 @@ def main() -> int:
           erle_db=round(10 * np.log10(near_e / out_e), 3))
 
     def counted(key, fn, *args):
-        """fn(*args), its AGC kernel launches kept under key."""
-        n0 = agc.launches
+        """fn(*args), its AGC and VAD kernel launches kept under key."""
+        n0, v0 = agc.launches, vad_mod.launches
         got = fn(*args)
         agc_by_phase[key] = agc.launches - n0
+        vad_by_phase[key] = vad_mod.launches - v0
         return got
 
     by_phase = {"3": launches}
@@ -1995,6 +2028,17 @@ def main() -> int:
         "launches_by_phase": agc_by_phase,
         "max_abs_err": 0,
         **agc_times,
+        "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "vad",
+        "route": "cuda",
+        "source": "wmix_tpu_torch/csrc/vad.cu",
+        # wmix_tpu's VAD is plain jnp: no TPU kernel
+        "replaces": None,
+        "launches": sum(vad_by_phase.values()),
+        "launches_by_phase": vad_by_phase,
+        "max_abs_err": 0,
+        **vad_times,
         "bound_by": "bytes",
         "library_ms": None}]}))
     print(name_power)

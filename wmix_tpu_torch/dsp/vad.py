@@ -7,11 +7,18 @@ smoothing (vad_sp.c), the GMM hypothesis test with model adaptation and
 hangover (vad_core.c), the 32 -> 16 -> 8 kHz downsampling, and the daemon
 wrapper's progressive `reduce` mute (src/webrtc.c vad_process:91-151).
 Aggressiveness mode 3.  int32 arithmetic with C wrap semantics; every
-state leaf carries a leading stream axis.  The filter recursions are
-Python loops over [B] tensors.
+state leaf carries a leading stream axis.
+
+On CUDA tensors `process` is one launch of the hand-written kernel
+`csrc/vad.cu`, one thread a stream.  Elsewhere it runs the plain version
+`process_body`, whose filter recursions are Python loops over [B]
+tensors.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -20,6 +27,7 @@ import torch
 from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.intops import (I32, div_w32_w16, downmix, norm_u32,
                                        norm_w32, u32, wrap16)
+from wmix_tpu_torch.utils import trace
 
 N_CH = 6
 N_G = 2
@@ -481,7 +489,17 @@ def process(state: VadState, pkg, chn: int, freq: int,
     """The daemon wrapper vad_process (src/webrtc.c:91-151) for one
     package [B, frame_num * chn], interleaved: truncating downmix,
     per-subpackage VAD + progressive reduce, the first-subpackage-only mute
-    quirk, and the result duplicated to every channel."""
+    quirk, and the result duplicated to every channel.  On CUDA tensors
+    one launch of the hand-written kernel `csrc/vad.cu`; elsewhere the
+    plain version `process_body`.  Returns (state, out int32)."""
+    if pkg.device.type == "cuda":
+        return _kernel_process(state, pkg, chn, freq, interval_ms)
+    return process_body(state, pkg, chn, freq, interval_ms)
+
+
+def process_body(state: VadState, pkg, chn: int, freq: int,
+                 interval_ms: int = 20):
+    """`process` in plain PyTorch: Python loops over [B] tensors."""
     # wrapper subpackage length (src/webrtc.c:56-65)
     if freq <= 16000:
         sub_ms = 20 if interval_ms % 20 == 0 else 10
@@ -504,3 +522,72 @@ def process(state: VadState, pkg, chn: int, freq: int,
     if chn > 1:
         out = out.repeat_interleave(chn, dim=1)
     return state, wrap16(out)
+
+
+# ------------------------------------------------------------ the kernel
+
+# a stream's shape of each VadState leaf, in field order, and its words
+_LEAF_SHAPES = ((TBL,),) * 4 + ((),) * 3 + ((N_CH, 16),) * 2 + (
+    (N_CH,), (5,), (5,), (4,), (4,), ())
+_LEAF_WORDS = tuple(int(np.prod(s, dtype=np.int64)) for s in _LEAF_SHAPES)
+launches = 0                                    # launches of csrc/vad.cu
+launches_by_device = collections.Counter()      # "cuda:N" -> n
+_count_lock = threading.Lock()
+
+
+def _state_views(buf: torch.Tensor, batch: int) -> VadState:
+    """The kernel's state buffer [268 B] as a VadState of views: the
+    leaves in field order, one after another, each [B, ...]."""
+    parts = buf.split([batch * w for w in _LEAF_WORDS])
+    return VadState(*(p.view((batch,) + shape)
+                      for p, shape in zip(parts, _LEAF_SHAPES)))
+
+
+def _kernel_process(state: VadState, pkg, chn: int, freq: int,
+                    interval_ms: int):
+    """`process` on the card: one launch of `csrc/vad.cu` for the whole
+    package, a short one included.  The input state is only read; the new
+    one is views of one fresh buffer."""
+    global launches
+    if freq not in (8000, 16000, 32000):
+        raise ValueError("fs must be 8000, 16000 or 32000")
+    if pkg.dim() != 2 or chn < 1 or pkg.shape[1] % chn:
+        raise ValueError(f"vad kernel: a package of shape "
+                         f"{tuple(pkg.shape)} is not [B, frames * {chn}]")
+    # the wrapper's subpackage (src/webrtc.c:56-65), as `process_body`
+    if freq <= 16000:
+        sub_ms = 20 if interval_ms % 20 == 0 else 10
+    else:
+        sub_ms = 10
+    B, n = pkg.shape
+    dev = pkg.device
+    x = pkg.to(I32).contiguous()
+    leaves = []
+    for name, t, shape in zip(VadState._fields, state, _LEAF_SHAPES):
+        if t.device != dev or t.dtype != I32 or \
+                tuple(t.shape) != (B,) + shape:
+            raise ValueError(f"vad kernel: state {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{I32} {(B,) + shape} on {dev}")
+        leaves.append(t.contiguous())
+    out = torch.empty((B, n), dtype=I32, device=dev)
+    buf = torch.empty((sum(_LEAF_WORDS) * B,), dtype=I32, device=dev)
+    ptrs = [x.data_ptr(), *(t.data_ptr() for t in leaves), out.data_ptr(),
+            buf.data_ptr()]
+    from wmix_tpu_torch import kernels
+    lib = kernels.load("vad")
+    # the tensors' device and its current stream, whatever device is
+    # current in this thread (as `agc.process_pkg` launches)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with trace.span("vad.kernel"):
+        rc = lib.wmix_vad_launch(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), B, n // chn,
+            chn, freq, freq // 1000 * sub_ms, dev.index,
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"vad kernel launch failed: CUDA error {rc} "
+                           f"({lib.wmix_cuda_error_string(rc).decode()})")
+    with _count_lock:       # shards launch from threads of their own
+        launches += 1
+        launches_by_device[str(dev)] += 1
+    return _state_views(buf, B), out

@@ -89,6 +89,13 @@ def _declare(lib: ctypes.CDLL) -> None:
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = getattr(lib, "wmix_vad_launch", None)
+    if fn is not None:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     err = getattr(lib, "wmix_cuda_error_string", None)
     if err is not None:
         err.argtypes = [ctypes.c_int]

@@ -188,6 +188,7 @@ sys.path.insert(0, REPO)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from wmix_tpu_torch import kernels  # noqa: E402
 from wmix_tpu_torch.dsp import agc  # noqa: E402
 from wmix_tpu_torch.dsp import vad as vad_mod  # noqa: E402
 
@@ -332,8 +333,9 @@ def phase_checkpoint(aec_package) -> int:
     from wmix_tpu_torch.engine.chain import RecordChain
     B7, N = 256, 10
     mic, play = audio(2 * N, B7, seed=5)
-    aec_package.package_step.launches = 0
-    agc_launched, vad_launched = agc.launches, vad_mod.launches
+    aec0 = kernels.launched("aec_package")
+    agc_launched, vad_launched = (kernels.launched("agc"),
+                                  kernels.launched("vad"))
     a = RecordChain(B7, 16000)
     a.run_chunk(mic[:N], play[:N])
     if not isinstance(a.state.aec, aec_package.PackageAecState):
@@ -354,15 +356,17 @@ def phase_checkpoint(aec_package) -> int:
         check_equal(f"phase 7 {nm} after restore", g, w)
     if (b.tick, b.play_count) != (a.tick, a.play_count):
         raise AssertionError("phase 7: tick or play_count differ")
-    launches = aec_package.package_step.launches
+    launches = kernels.launched("aec_package") - aec0
     if launches != 3 * N - 4:
         raise AssertionError(f"phase 7: {launches} launches")
-    if agc.launches - agc_launched != 3 * N:
-        raise AssertionError(f"phase 7: {agc.launches - agc_launched} AGC "
-                             f"kernel launches over {3 * N} packages")
-    if vad_mod.launches - vad_launched != 3 * N:
-        raise AssertionError(f"phase 7: {vad_mod.launches - vad_launched} "
-                             f"VAD kernel launches over {3 * N} packages")
+    agc_n = kernels.launched("agc") - agc_launched
+    vad_n = kernels.launched("vad") - vad_launched
+    if agc_n != 3 * N:
+        raise AssertionError(f"phase 7: {agc_n} AGC kernel launches over "
+                             f"{3 * N} packages")
+    if vad_n != 3 * N:
+        raise AssertionError(f"phase 7: {vad_n} VAD kernel launches over "
+                             f"{3 * N} packages")
     phase("checkpoint", batch=B7, packages_before=N, packages_after=N,
           outputs_equal=True, snapshot_bytes=len(blob),
           bytes_per_stream=round(len(blob) / B7, 1),
@@ -405,22 +409,23 @@ def phase_server(aec_package, mic, play, chain_outs) -> dict:
         srv.flush_pipeline()
         collect(t_to - 1)
 
-    aec_package.package_step.launches = 0
-    agc_launched, vad_launched = agc.launches, vad_mod.launches
+    aec0 = kernels.launched("aec_package")
+    agc_launched, vad_launched = (kernels.launched("agc"),
+                                  kernels.launched("vad"))
     srv.start_drain_thread()
     on = StepTimer(budget_ms=20.0)
     run(0, ON_TICKS, DEPTH, on)
     srv.stop_drain_thread()
-    launches_on = aec_package.package_step.launches
-    agc_on = agc.launches - agc_launched
-    vad_on = vad_mod.launches - vad_launched
+    launches_on = kernels.launched("aec_package") - aec0
+    agc_on = kernels.launched("agc") - agc_launched
+    vad_on = kernels.launched("vad") - vad_launched
     n_on, lat_on = len(blocks), (list(latency_ms), list(latency_ticks))
     off = StepTimer(budget_ms=20.0)
     run(ON_TICKS, ON_TICKS + OFF_TICKS, OFF_DEPTH, off)
     torch.cuda.synchronize()
-    launches_off = aec_package.package_step.launches - launches_on
-    agc_off = agc.launches - agc_launched - agc_on
-    vad_off = vad_mod.launches - vad_launched - vad_on
+    launches_off = kernels.launched("aec_package") - aec0 - launches_on
+    agc_off = kernels.launched("agc") - agc_launched - agc_on
+    vad_off = kernels.launched("vad") - vad_launched - vad_on
     if n_on != ON_TICKS or len(blocks) != ON_TICKS + OFF_TICKS:
         raise AssertionError(f"phase 8: {n_on} and {len(blocks)} blocks")
     for t, blk in enumerate(blocks):
@@ -478,7 +483,7 @@ def phase_daemon(aec_package, kernels) -> int:
     try:
         path = os.path.join(tmp, "s.sock")
         kernels.load("aec_package")     # as main() does, before clients
-        aec_package.package_step.launches = 0
+        aec0 = kernels.launched("aec_package")
         d = StreamDaemon(path, capacity=64, realtime=False)
         d.start()
         results, errors = {}, []
@@ -528,7 +533,7 @@ def phase_daemon(aec_package, kernels) -> int:
                     pcm.shape != (320 + 160,) or pcm.dtype != np.int16 or
                     not isinstance(vad, int) for pcm, vad in got):
                 raise AssertionError(f"phase 9 client {seed}: bad packages")
-        launches = aec_package.package_step.launches
+        launches = kernels.launched("aec_package") - aec0
         if launches <= 0 or stats["n"] <= 0:
             raise AssertionError(f"phase 9: launches {launches}, stats "
                                  f"{stats}")
@@ -666,8 +671,9 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
     play = (rng.randn(n_pkgs, B_MAIN, n) * 5000).astype(np.int16)
     mic_d = torch.from_numpy(mic).cuda()
     play_d = torch.from_numpy(play).cuda()
-    aec_package.package_step.launches = 0
-    agc_launched, vad_launched = agc.launches, vad_mod.launches
+    aec0 = kernels.launched("aec_package")
+    agc_launched, vad_launched = (kernels.launched("agc"),
+                                  kernels.launched("vad"))
     card_chain = RecordChain(B_MAIN, freq, **kw)    # default: the card
     if card_chain.device.type != "cuda":
         raise AssertionError("the chain's default device is not the card")
@@ -680,17 +686,17 @@ def run_chain_on_card(aec_package, freq, kw, n_pkgs, n_timed, seed):
                                                          play_d[k])])
     torch.cuda.synchronize()
     pkg_ms = (time.perf_counter() - t0) * 1e3 / n_timed
-    launches = aec_package.package_step.launches
+    launches = kernels.launched("aec_package") - aec0
     agc_want = n_pkgs if card_chain.flags[2] else 0
-    if agc.launches - agc_launched != agc_want:
-        raise AssertionError(f"{agc.launches - agc_launched} AGC kernel "
-                             f"launches over {n_pkgs} packages, "
-                             f"{agc_want} wanted")
+    agc_n = kernels.launched("agc") - agc_launched
+    if agc_n != agc_want:
+        raise AssertionError(f"{agc_n} AGC kernel launches over {n_pkgs} "
+                             f"packages, {agc_want} wanted")
     vad_want = n_pkgs if card_chain.flags[3] else 0
-    if vad_mod.launches - vad_launched != vad_want:
-        raise AssertionError(f"{vad_mod.launches - vad_launched} VAD kernel "
-                             f"launches over {n_pkgs} packages, "
-                             f"{vad_want} wanted")
+    vad_n = kernels.launched("vad") - vad_launched
+    if vad_n != vad_want:
+        raise AssertionError(f"{vad_n} VAD kernel launches over {n_pkgs} "
+                             f"packages, {vad_want} wanted")
     if int(card_chain.aec_nonfinite):
         raise AssertionError("non-finite AEC output samples")
     cpu_chain = RecordChain(4, freq, device="cpu", **kw)
@@ -941,7 +947,7 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
     """14. the device codec halves at full width, card against CPU."""
     from wmix_tpu_torch.codecs.aac_batch import BatchedFilterbank
     from wmix_tpu_torch.codecs.mp3_batch import BatchedSynth
-    aec_package.package_step.launches = 0
+    aec0 = kernels.launched("aec_package")
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.RandomState(14)
     frames = [(2, 36)] * 8 + [(1, 36)] * 4
@@ -1034,7 +1040,7 @@ def phase_codec_device(aec_package, per_op_ms, name_power) -> int:
     for seq, name in ((0, "long"), (2, "short")):
         busy[f"fb_{name}"] = device_busy(
             lambda: fresh.frame_stacked(card_idx, seq, 0, x))
-    launches = aec_package.package_step.launches
+    launches = kernels.launched("aec_package") - aec0
     if launches:
         raise AssertionError(f"phase 14: {launches} AEC kernel launches")
     stereo = [ms for nch, ms in synth_ms[1:] if nch == 2]
@@ -1125,7 +1131,7 @@ def phase_codec_decoders(aec_package, name_power) -> int:
     front_ends = {"mp3fe": mp3fe.available(), "aacfe": aacfe.available()}
     if not all(front_ends.values()):
         raise AssertionError(f"phase 15: C front-ends missing: {front_ends}")
-    aec_package.package_step.launches = 0
+    aec0 = kernels.launched("aec_package")
     aac = [stream("aac_44k_stereo.aac"), stream("aac_32k_mono.aac")]
     cases = {
         "aac": (AacBatchDecoder, B_DEC, [aac[b % 2] for b in range(B_DEC)],
@@ -1166,7 +1172,7 @@ def phase_codec_decoders(aec_package, name_power) -> int:
             tick_ms_max=round(max(tick_ms), 3),
             streams=round(audio_s / (sum(tick_ms) / 1e3), 1),
             seconds={"cuda": round(secs, 3), "cpu": round(want[4], 3)})
-    launches = aec_package.package_step.launches
+    launches = kernels.launched("aec_package") - aec0
     if launches:
         raise AssertionError(f"phase 15: {launches} AEC kernel launches")
     phase("codec_decoders", card=name_power, card_equals_cpu=True,
@@ -1348,12 +1354,12 @@ def phase_daemon_core(aec_package, name_power) -> int:
 
     # the bridge at full width, fast mode: the kernel's launches, and the
     # bridged packages equal to the same chain driven directly
-    aec_package.package_step.launches = 0
+    aec0 = kernels.launched("aec_package")
     t0 = time.perf_counter()
     got, pump_ms, tick_ms, bridge = run_bridge(BRIDGE_CAP, None)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = aec_package.package_step.launches
+    launches = kernels.launched("aec_package") - aec0
     n_pkgs = got.shape[1]
     if launches != n_pkgs - 4:
         raise AssertionError(f"phase 16: {launches} kernel launches over "
@@ -1509,12 +1515,13 @@ def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
     devices = [f"cuda:{i % n_cards}" for i in range(shards)]
 
     # fast mode, the kernel on every shard's device
-    aec_package.package_step.launches = 0
-    aec_package.package_step.launches_by_device.clear()
+    aec0 = kernels.launched("aec_package")
+    by0 = {d: kernels.launches[("aec_package", d)] for d in devices}
     sh = ShardedRecordChain(B_MAIN, 16000, shards=shards, devices=devices)
     got, sh_ms = timed_steps(sh, mic_d, play_d, SHARD_PKGS, SHARD_TIMED)
-    launches = aec_package.package_step.launches
-    by_device = dict(aec_package.package_step.launches_by_device)
+    launches = kernels.launched("aec_package") - aec0
+    by_device = {d: kernels.launches[("aec_package", d)] - by0[d]
+                 for d in devices}
     want_by_device = {}
     for d in devices:
         want_by_device[d] = want_by_device.get(d, 0) + SHARD_PKGS - 4
@@ -1555,12 +1562,12 @@ def phase_sharded(aec_package, mic_d, play_d, main_origin, main_pkg_ms,
             ux = RecordChain(B_SHARD_X, 16000, **kw)
         if sx.chains[0].fast == (mode == "exact"):
             raise AssertionError(f"phase 17 {mode}: wrong arithmetic mode")
-        n0 = aec_package.package_step.launches
+        n0 = kernels.launched("aec_package")
         mic_x = mic_d[:SHARD_X_PKGS, :B_SHARD_X]
         play_x = play_d[:SHARD_X_PKGS, :B_SHARD_X]
         got_x, sx_ms = timed_steps(sx, mic_x, play_x, SHARD_X_PKGS, 4)
         want_x, ux_ms = timed_steps(ux, mic_x, play_x, SHARD_X_PKGS, 4)
-        if aec_package.package_step.launches != n0:
+        if kernels.launched("aec_package") != n0:
             raise AssertionError(f"phase 17 {mode}: the kernel launched")
         for j, nm in enumerate(("origin", "pkg8k", "vflags")):
             check_equal(f"phase 17 {mode}: sharded vs unsharded, {nm}",
@@ -1622,14 +1629,14 @@ def phase_parity(aec_package, name_power) -> int:
         futs = {nm: ex.submit(tp.run_config, nm, ref["configs"][nm],
                               B_PARITY, PARITY_S, "cuda", None, threads)
                 for nm in tp.ZERO_LSB}
-        aec_package.package_step.launches = 0
+        aec0 = kernels.launched("aec_package")
         fast = tp.run_config("full_chain", ref["configs"]["full_chain"],
                              B_PARITY, PARITY_S, "cuda")
-        launches = aec_package.package_step.launches
-        aec_package.package_step.launches = 0
+        launches = kernels.launched("aec_package") - aec0
+        aec0 = kernels.launched("aec_package")
         aec = tp.run_config("aec_only", ref["configs"]["aec_only"],
                             B_PARITY, PARITY_S, "cuda")
-        aec_launches = aec_package.package_step.launches
+        aec_launches = kernels.launched("aec_package") - aec0
         zero = {nm: f.result() for nm, f in futs.items()}
     bad = {nm: e["vs_wmix_tpu"] for nm, e in zero.items()
            if not e["vs_wmix_tpu"]["equal"]}
@@ -1704,9 +1711,9 @@ def phase_benches(aec_package, name_power) -> int:
                                 realtime_bench)
     from wmix_tpu_torch.engine.chain import RecordChain
     t0 = time.perf_counter()
-    aec_package.package_step.launches = 0
+    aec0 = kernels.launched("aec_package")
     point, outs, timed = bench.run_point(bench.FULL, B_MAIN, K, BENCH_CHUNKS)
-    bench_launches = aec_package.package_step.launches
+    bench_launches = kernels.launched("aec_package") - aec0
     # every package after the priming one of the first warm chunk
     want = (2 + BENCH_CHUNKS) * K - 1
     if timed != BENCH_CHUNKS * K or bench_launches != want:
@@ -1723,11 +1730,11 @@ def phase_benches(aec_package, name_power) -> int:
     bench_lsb = compare_outputs([tuple(o[:, :4].cpu() for o in outs)],
                                 [want_outs])
 
-    aec_package.package_step.launches = 0
+    aec0 = kernels.launched("aec_package")
     fn, args = graft_entry.entry()
     _st, origin, pkg8k, vflags = fn(*args)
     torch.cuda.synchronize()
-    graft_launches = aec_package.package_step.launches
+    graft_launches = kernels.launched("aec_package") - aec0
     if graft_launches != 1:
         raise AssertionError(f"phase 19: graft_entry's fn launched the "
                              f"kernel {graft_launches} times, 1 wanted")
@@ -1739,16 +1746,16 @@ def phase_benches(aec_package, name_power) -> int:
                              f"(origin, pkg8k, VAD equal, equal share): "
                              f"bench {bench_lsb}, graft_entry {graft_lsb}")
 
-    aec_package.package_step.launches = 0
+    aec0 = kernels.launched("aec_package")
     rt = realtime_bench.bench_ticks(B_MAIN, RT_TICKS, RT_WARM, RT_DEPTH)
-    rt_launches = aec_package.package_step.launches
+    rt_launches = kernels.launched("aec_package") - aec0
     if rt["delivered"] != RT_TICKS or rt_launches != RT_TICKS + RT_WARM - 4:
         raise AssertionError(f"phase 19: realtime_bench delivered "
                              f"{rt['delivered']} of {RT_TICKS} ticks with "
                              f"{rt_launches} kernel launches")
     mix = mix_bench.bench(B_MIX, MIX_SOURCES, MIX_TICKS)
     codec = codec_bench.run(quick=True)
-    if aec_package.package_step.launches != rt_launches:
+    if kernels.launched("aec_package") - aec0 != rt_launches:
         raise AssertionError("phase 19: the mix or codec bench launched "
                              "the AEC kernel")
     phase("benches", card=name_power, bench_point=point,
@@ -1774,7 +1781,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 1
-    from wmix_tpu_torch import kernels
     from wmix_tpu_torch.engine import aec_package
     from wmix_tpu_torch.engine.aec_step import pack_dyn
     from wmix_tpu_torch.engine.chain import RecordChain
@@ -1803,8 +1809,8 @@ def main() -> int:
     play_d = torch.from_numpy(play).to(dev)
     chain = RecordChain(B_MAIN, 16000)     # the default device: the card
     torch.cuda.synchronize()
-    aec_package.package_step.launches = 0
-    agc.launches = vad_mod.launches = 0
+    aec0, agc0, vad0 = (kernels.launched(k)
+                        for k in ("aec_package", "agc", "vad"))
     chunk_ms = []
     outs = []
     for c in range(CHUNKS):
@@ -1815,16 +1821,18 @@ def main() -> int:
         torch.cuda.synchronize()
         chunk_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(o)
-    launches = aec_package.package_step.launches
+    launches = kernels.launched("aec_package") - aec0
+    agc_launches = kernels.launched("agc") - agc0
+    vad_launches = kernels.launched("vad") - vad0
     steady_pkgs = K * CHUNKS - 4
     if launches != steady_pkgs:
         raise AssertionError(f"kernel launches {launches} != steady "
                              f"packages {steady_pkgs}")
-    agc_by_phase = {"3": agc.launches}
-    vad_by_phase = {"3": vad_mod.launches}
-    if agc.launches != K * CHUNKS or vad_mod.launches != K * CHUNKS:
-        raise AssertionError(f"AGC and VAD kernel launches {agc.launches} "
-                             f"and {vad_mod.launches} != packages "
+    agc_by_phase = {"3": agc_launches}
+    vad_by_phase = {"3": vad_launches}
+    if agc_launches != K * CHUNKS or vad_launches != K * CHUNKS:
+        raise AssertionError(f"AGC and VAD kernel launches {agc_launches} "
+                             f"and {vad_launches} != packages "
                              f"{K * CHUNKS}")
     for o, p8, vf in outs:
         if o.dtype != torch.int16 or p8.dtype != torch.int16:
@@ -1842,8 +1850,8 @@ def main() -> int:
     audio_s = K * 0.02
     streams = [B_MAIN * audio_s / (ms / 1e3) for ms in steady_ms]
     phase("main_path", batch=B_MAIN, packages=K * CHUNKS,
-          kernel_launches=launches, agc_kernel_launches=agc.launches,
-          vad_kernel_launches=vad_mod.launches,
+          kernel_launches=launches, agc_kernel_launches=agc_launches,
+          vad_kernel_launches=vad_launches,
           chunk_ms=[round(x, 3) for x in chunk_ms],
           steady_chunk_ms_median=round(float(np.median(steady_ms)), 3),
           streams_median=round(float(np.median(streams)), 1),
@@ -1903,21 +1911,21 @@ def main() -> int:
           bound_by=bound_by, bound_share=round(bound_ms / kernel_ms, 4),
           bytes_moved=moved, flop=flop)
 
-    n0 = agc.launches
+    n0 = kernels.launched("agc")
     pkg0 = mic_d[0].to(torch.int32)
     agc_times = phase_stage_kernel(
         "agc", agc.AgcState._fields,
         lambda st, x: agc.process_pkg(st, x, 1, 16000, 5),
         lambda st, x: agc.process_pkg_body(st, x, 1, 16000, 5),
         chain.state.agc, pkg0)
-    agc_by_phase["4b"] = agc.launches - n0
-    n0 = vad_mod.launches
+    agc_by_phase["4b"] = kernels.launched("agc") - n0
+    n0 = kernels.launched("vad")
     vad_times = phase_stage_kernel(
         "vad", vad_mod.VadState._fields,
         lambda st, x: vad_mod.process(st, x, 1, 16000),
         lambda st, x: vad_mod.process_body(st, x, 1, 16000),
         chain.state.vad, pkg0)
-    vad_by_phase["4c"] = vad_mod.launches - n0
+    vad_by_phase["4c"] = kernels.launched("vad") - n0
 
     # 5. the chain on cuda (kernel) against the chain on cpu (plain)
     mic4, play4 = audio(2 * K, 4, seed=3)
@@ -1972,10 +1980,10 @@ def main() -> int:
 
     def counted(key, fn, *args):
         """fn(*args), its AGC and VAD kernel launches kept under key."""
-        n0, v0 = agc.launches, vad_mod.launches
+        n0, v0 = kernels.launched("agc"), kernels.launched("vad")
         got = fn(*args)
-        agc_by_phase[key] = agc.launches - n0
-        vad_by_phase[key] = vad_mod.launches - v0
+        agc_by_phase[key] = kernels.launched("agc") - n0
+        vad_by_phase[key] = kernels.launched("vad") - v0
         return got
 
     by_phase = {"3": launches}

@@ -1,5 +1,5 @@
 """wmix_tpu_torch RecordChain with the integer backends (NSX, AECM) bit-equal
-to wmix_tpu's chain, and the chain's step timer.
+to wmix_tpu's chain.
 
 Stored references.  wmix_tpu's chain with NSX or AECM costs one XLA
 program per plan signature, three to thirteen CPU-minutes a case
@@ -153,23 +153,6 @@ def test_slot_equals_a_chain_of_its_own(case, monkeypatch):
     one = _run(_chain(case, monkeypatch, 1), mic[:8, 1:2], play[:8, 1:2])
     for g, o in zip(got, one):
         np.testing.assert_array_equal(g[:, 1:2], o)
-
-
-def test_step_timer(monkeypatch):
-    """With WMIX_TRACE_STEPS=1 one run_chunk of K packages is one step
-    timed against K * interval_ms, as in the reference; without it the
-    chain has no timer."""
-    monkeypatch.setenv("WMIX_TRACE_STEPS", "1")
-    ch = RecordChain(2, 16000, 10, aec_enable=False, device="cpu",
-                     ns_backend="nsx")
-    zeros = np.zeros((3, 2, 160), np.int16)
-    ch.run_chunk(zeros, zeros)
-    s = ch.step_timer.summary()
-    assert s["n"] == 1 and s["budget_ms"] == 3 * 10
-    ch.step(zeros[0], zeros[0])              # a step() is not timed
-    assert len(ch.step_timer.samples) == 1
-    monkeypatch.setenv("WMIX_TRACE_STEPS", "0")
-    assert RecordChain(2, 16000, device="cpu").step_timer is None
 
 
 def test_stream_server_slot_equals_the_chain(monkeypatch):

@@ -245,6 +245,7 @@ def test_kernel_on_a_device_that_is_not_current():
     cuda:1 and equals its plain version there."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
+    from wmix_tpu_torch import kernels
     from wmix_tpu_torch.engine import aec_package as ap
     from wmix_tpu_torch.engine.aec_step import pack_dyn
     dev = torch.device("cuda:1")
@@ -262,14 +263,14 @@ def test_kernel_on_a_device_that_is_not_current():
         a.ast.far_pre, a.ast.far_parts, a.ast.farw_parts, far[8], dyn)
     ins = (near[8].contiguous(),
            *ap._kernel_inputs(a.ast.far_parts, a.ast.farw_parts, dyn))
-    n0 = ap.package_step.launches_by_device["cuda:1"]
+    n0 = kernels.launches[("aec_package", "cuda:1")]
     st_k, out_k = ap.package_step({k: v.clone() for k, v in
                                    a.ast.p.items()}, *ins)
     st_p, out_p = ap.package_body({k: v.clone() for k, v in
                                    a.ast.p.items()}, *ins)
     torch.cuda.synchronize(dev)
     assert torch.cuda.current_device() == 0
-    assert ap.package_step.launches_by_device["cuda:1"] == n0 + 1
+    assert kernels.launches[("aec_package", "cuda:1")] == n0 + 1
     rel = float((out_k - out_p).abs().max() /
                 out_p.abs().max().clamp_min(1.0))
     assert rel <= 1e-4

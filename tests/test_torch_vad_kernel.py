@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from wmix_tpu_torch import kernels
 from wmix_tpu_torch.dsp import vad
 
 N_PKGS = 60
@@ -333,8 +334,7 @@ def test_state_views_match_init_state():
 def test_cpu_process_launches_nothing():
     """On the CPU `process` is the plain version: no launch counted, the
     same outputs and state as `process_body`."""
-    before = vad.launches
-    by_device = dict(vad.launches_by_device)
+    before = dict(kernels.launches)
     st1 = st2 = _aged_state(3, seed=4)
     for k in range(2):
         pkg = torch.from_numpy(_package(k, 3, 16000, 2, 20, 9))
@@ -342,10 +342,9 @@ def test_cpu_process_launches_nothing():
         st2, out2 = vad.process_body(st2, pkg, 2, 16000)
         assert torch.equal(out1, out2)
         assert all(torch.equal(a, b) for a, b in zip(st1, st2))
-    assert vad.launches == before
-    assert dict(vad.launches_by_device) == by_device
+    assert dict(kernels.launches) == before
     if not torch.cuda.is_available():
-        assert vad.launches == 0
+        assert kernels.launched("vad") == 0
 
 
 @pytest.mark.parametrize("freq,chn,n", [(48000, 1, 960), (44100, 1, 882),
@@ -358,35 +357,6 @@ def test_kernel_refuses_what_it_has_no_kernel_for(freq, chn, n):
     with pytest.raises(ValueError):
         vad._kernel_process(st, torch.zeros((2, n), dtype=torch.int32),
                             chn, freq, 20)
-
-
-def test_launch_counted_behind_a_wrapper(monkeypatch):
-    """The kernel's wrapper, with the launch itself faked, passes its 18
-    pointers and the package's geometry, and counts the launch in the
-    module even while a wrapper (a benchmark's timing span) replaces the
-    module's `process`."""
-    from types import SimpleNamespace
-
-    from wmix_tpu_torch import kernels
-    launched = []
-
-    class FakeLib:
-        def wmix_vad_launch(self, ptrs, n_ptrs, *args):
-            launched.append((n_ptrs, args[:5]))
-            return 0
-    monkeypatch.setattr(kernels, "load", lambda name: FakeLib())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev: SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(vad, "launches", 0)
-    monkeypatch.setattr(vad, "launches_by_device", {"cpu": 0})
-    orig = vad.process
-    monkeypatch.setattr(vad, "process", lambda *a, **k: orig(*a, **k))
-    st, out = vad._kernel_process(vad.init_state(3, "cpu"),
-                                  torch.zeros((3, 1280), dtype=torch.int32),
-                                  2, 32000, 20)
-    assert launched == [(18, (3, 640, 2, 32000, 320))]
-    assert vad.launches == 1 and vad.launches_by_device == {"cpu": 1}
-    assert type(st) is vad.VadState and out.shape == (3, 1280)
 
 
 # ------------------------------------------------------------- the card
@@ -403,7 +373,7 @@ def _run_on_card(dev, batch, freq, chn, interval_ms, n_pkgs, seed):
     on the card from the aged start state: outputs and all 15 state
     leaves bit-equal, one launch a package."""
     st_k = st_b = _aged_state(batch, seed, dev)
-    launches = vad.launches
+    launches = kernels.launched("vad")
     flags = 0
     for k in range(n_pkgs):
         pkg = torch.from_numpy(_package(k, batch, freq, chn, interval_ms,
@@ -417,7 +387,7 @@ def _run_on_card(dev, batch, freq, chn, interval_ms, n_pkgs, seed):
             assert a.shape == b.shape and a.dtype == b.dtype, name
             assert torch.equal(a, b), f"package {k}: {name}"
         flags += int((st_b.reduce < 4).sum())
-    assert vad.launches - launches == n_pkgs
+    assert kernels.launched("vad") - launches == n_pkgs
     return flags
 
 
@@ -445,10 +415,10 @@ def test_short_package_passes_through_on_card(cuda_device):
     the package back as it came, the state unchanged."""
     st = _aged_state(5, 8, cuda_device)
     pkg = torch.from_numpy(_package(0, 5, 16000, 1, 10, 3)).to(cuda_device)
-    launches = vad.launches
+    launches = kernels.launched("vad")
     st2, out = vad.process(st, pkg, 1, 16000)
     torch.cuda.synchronize()
-    assert vad.launches - launches == 1
+    assert kernels.launched("vad") - launches == 1
     assert torch.equal(out, pkg)
     assert all(torch.equal(a, b) for a, b in zip(st2, st))
 
@@ -457,8 +427,8 @@ def test_short_package_passes_through_on_card(cuda_device):
 @pytest.mark.parametrize("freq", [48000, 44100, 11025])
 def test_kernel_refuses_on_card(cuda_device, freq):
     st = vad.init_state(2, cuda_device)
-    launches = vad.launches
+    launches = kernels.launched("vad")
     with pytest.raises(ValueError, match="fs must be"):
         vad.process(st, torch.zeros((2, freq // 50), dtype=torch.int32,
                                     device=cuda_device), 1, freq)
-    assert vad.launches == launches
+    assert kernels.launched("vad") == launches

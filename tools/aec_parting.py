@@ -255,9 +255,6 @@ def _capture_port_inputs(sides) -> None:
         if side is not None:
             side.inputs = tuple(t.detach().cpu().clone() for t in ins)
         return step(state, *ins, **kw)
-    # the kernel path counts its launches on the module's `package_step`
-    wrapped.launches = step.launches
-    wrapped.launches_by_device = step.launches_by_device
     aec_package.package_step = wrapped
 
 

@@ -45,12 +45,14 @@ Layout mirrors `wmix_tpu`:
              encoder (aacenc) and wav
   native   — the C front-ends' and the stepper's sources and their build
              (system compiler)
-  utils    — trace (spans, StepTimer, OpCounter, the profiler)
+  utils    — trace (spans, StepTimer, OpCounter, the profiler), turns
+             (device reads that hand the host's turn on)
   config   — EngineConfig
   staging  — the pinned host buffer ring behind every per-tick copy
   device   — the default-device rule (the card unless the CPU is asked for)
   csrc     — CUDA sources
-  kernels  — build-and-load of the CUDA sources (nvcc + ctypes)
+  kernels  — build and load of the CUDA sources (nvcc + ctypes), and
+             `launch`, every kernel's one launch path and counter
 
 Importing this package imports torch and numpy only: never jax, never
 `wmix_tpu`.

@@ -102,6 +102,7 @@ def run_point(chain_kw: dict, batch: int, k_pkgs: int, n_chunks: int,
     for every timed package (on the CPU its plain version runs and nothing
     launches): anything else raises."""
     import torch
+    from wmix_tpu_torch import kernels
     from wmix_tpu_torch.engine import aec_package
     from wmix_tpu_torch.engine.chain import RecordChain
 
@@ -123,15 +124,15 @@ def run_point(chain_kw: dict, batch: int, k_pkgs: int, n_chunks: int,
     for _ in range(2):
         chain.run_chunk(mic, play)
     sync()
-    launched = aec_package.package_step.launches
+    launched = kernels.launched("aec_package")
     t0 = time.perf_counter()
     for _ in range(n_chunks):
         outs = chain.run_chunk(mic, play)
     sync()
     dt = time.perf_counter() - t0
-    launches = aec_package.package_step.launches - launched
+    launches = kernels.launched("aec_package") - launched
     kernel = dev.type == "cuda" and \
-        isinstance(chain.state.aec, aec_package.PackageAecState)
+        aec_package.is_kernel_layout(chain.state.aec)
     want = n_chunks * k_pkgs if kernel else 0
     if launches != want:
         raise RuntimeError(f"bench: {launches} AEC kernel launches over "

@@ -14,15 +14,13 @@ limiter while-loop are Python loops over [B] tensors.
 """
 from __future__ import annotations
 
-import collections
-import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from wmix_tpu_torch import kernels
 from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.intops import (I32, I64, add_sat_w16, div_trunc,
                                        downmix, norm_u32, norm_w32, sat_w16,
@@ -573,9 +571,6 @@ def process_pkg_body(st: AgcState, pkg, chn: int, freq: int,
 
 _SUB_LEN = {8000: 80, 16000: 160, 32000: 160}   # samples a subpackage
 _N_SCALAR = len(AgcState._fields) - 1           # the leaves before down_state
-launches = 0                                    # launches of csrc/agc.cu
-launches_by_device = collections.Counter()      # "cuda:N" -> n
-_count_lock = threading.Lock()
 
 
 def _state_views(buf: torch.Tensor, batch: int) -> AgcState:
@@ -586,20 +581,11 @@ def _state_views(buf: torch.Tensor, batch: int) -> AgcState:
                     down_state=buf[_N_SCALAR * batch:].view(batch, 8))
 
 
-def _kernel_leaf(name: str, t, shape, dev) -> torch.Tensor:
-    if t.device != dev or t.dtype != I32 or tuple(t.shape) != shape:
-        raise ValueError(f"agc kernel: state {name} is {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}, expected "
-                         f"{I32} {shape} on {dev}")
-    return t.contiguous()
-
-
 def _kernel_pkg(st: AgcState, pkg, chn: int, freq: int,
                 compression_gain_db: int):
     """`process_pkg` on the card: one launch of `csrc/agc.cu` for the
     whole package.  The input state is only read; the new one is views of
     one fresh buffer."""
-    global launches
     sub_len = _SUB_LEN.get(freq)
     if sub_len is None or chn not in (1, 2) or pkg.dim() != 2:
         raise ValueError(f"agc kernel: no kernel for freq {freq}, chn {chn}, "
@@ -610,29 +596,15 @@ def _kernel_pkg(st: AgcState, pkg, chn: int, freq: int,
         raise ValueError(f"agc kernel: {n} samples is not a whole number of "
                          f"{sub_len}-sample subpackages of {chn} channels")
     dev = pkg.device
-    x = pkg.to(I32).contiguous()
-    leaves = [_kernel_leaf(f, t, (B,), dev)
-              for f, t in zip(AgcState._fields[:_N_SCALAR], st)]
-    down = _kernel_leaf("down_state", st.down_state, (B, 8), dev)
-    table = _table_on(compression_gain_db, str(dev))
     out = torch.empty((B, n), dtype=I32, device=dev)
     buf = torch.empty(((_N_SCALAR + 8) * B,), dtype=I32, device=dev)
-    ptrs = [x.data_ptr(), table.data_ptr(), *(t.data_ptr() for t in leaves),
-            down.data_ptr(), out.data_ptr(), buf.data_ptr()]
-    from wmix_tpu_torch import kernels
-    lib = kernels.load("agc")
-    # the tensors' device and its current stream, whatever device is
-    # current in this thread (as `aec_package.package_step` launches)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with trace.span("agc.kernel"):
-        rc = lib.wmix_agc_launch(
-            (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), B, frames, chn,
-            sub_len, dev.index, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"agc kernel launch failed: CUDA error {rc} "
-                           f"({lib.wmix_cuda_error_string(rc).decode()})")
-    with _count_lock:       # shards launch from threads of their own
-        launches += 1
-        launches_by_device[str(dev)] += 1
+    kernels.launch("agc", dict(
+        pkg=(pkg.to(I32).contiguous(), (B, n), I32),
+        table=(_table_on(compression_gain_db, str(dev)), (32,), I32),
+        **{f: (t.contiguous(), (B,), I32)
+           for f, t in zip(AgcState._fields[:_N_SCALAR], st)},
+        down_state=(st.down_state.contiguous(), (B, 8), I32),
+        out=(out, (B, n), I32), state_out=(buf, buf.shape, I32)),
+        (B, frames, chn, sub_len), span="agc.kernel")
     return _state_views(buf, B), out
 

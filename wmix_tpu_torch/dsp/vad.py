@@ -16,18 +16,15 @@ tensors.
 """
 from __future__ import annotations
 
-import collections
-import ctypes
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from wmix_tpu_torch import kernels
 from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.intops import (I32, div_w32_w16, downmix, norm_u32,
                                        norm_w32, u32, wrap16)
-from wmix_tpu_torch.utils import trace
 
 N_CH = 6
 N_G = 2
@@ -530,9 +527,6 @@ def process_body(state: VadState, pkg, chn: int, freq: int,
 _LEAF_SHAPES = ((TBL,),) * 4 + ((),) * 3 + ((N_CH, 16),) * 2 + (
     (N_CH,), (5,), (5,), (4,), (4,), ())
 _LEAF_WORDS = tuple(int(np.prod(s, dtype=np.int64)) for s in _LEAF_SHAPES)
-launches = 0                                    # launches of csrc/vad.cu
-launches_by_device = collections.Counter()      # "cuda:N" -> n
-_count_lock = threading.Lock()
 
 
 def _state_views(buf: torch.Tensor, batch: int) -> VadState:
@@ -548,7 +542,6 @@ def _kernel_process(state: VadState, pkg, chn: int, freq: int,
     """`process` on the card: one launch of `csrc/vad.cu` for the whole
     package, a short one included.  The input state is only read; the new
     one is views of one fresh buffer."""
-    global launches
     if freq not in (8000, 16000, 32000):
         raise ValueError("fs must be 8000, 16000 or 32000")
     if pkg.dim() != 2 or chn < 1 or pkg.shape[1] % chn:
@@ -561,33 +554,13 @@ def _kernel_process(state: VadState, pkg, chn: int, freq: int,
         sub_ms = 10
     B, n = pkg.shape
     dev = pkg.device
-    x = pkg.to(I32).contiguous()
-    leaves = []
-    for name, t, shape in zip(VadState._fields, state, _LEAF_SHAPES):
-        if t.device != dev or t.dtype != I32 or \
-                tuple(t.shape) != (B,) + shape:
-            raise ValueError(f"vad kernel: state {name} is {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}, expected "
-                             f"{I32} {(B,) + shape} on {dev}")
-        leaves.append(t.contiguous())
     out = torch.empty((B, n), dtype=I32, device=dev)
     buf = torch.empty((sum(_LEAF_WORDS) * B,), dtype=I32, device=dev)
-    ptrs = [x.data_ptr(), *(t.data_ptr() for t in leaves), out.data_ptr(),
-            buf.data_ptr()]
-    from wmix_tpu_torch import kernels
-    lib = kernels.load("vad")
-    # the tensors' device and its current stream, whatever device is
-    # current in this thread (as `agc.process_pkg` launches)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with trace.span("vad.kernel"):
-        rc = lib.wmix_vad_launch(
-            (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), B, n // chn,
-            chn, freq, freq // 1000 * sub_ms, dev.index,
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"vad kernel launch failed: CUDA error {rc} "
-                           f"({lib.wmix_cuda_error_string(rc).decode()})")
-    with _count_lock:       # shards launch from threads of their own
-        launches += 1
-        launches_by_device[str(dev)] += 1
+    kernels.launch("vad", dict(
+        pkg=(pkg.to(I32).contiguous(), (B, n), I32),
+        **{name: (t.contiguous(), (B,) + shape, I32)
+           for name, t, shape in zip(VadState._fields, state,
+                                     _LEAF_SHAPES)},
+        out=(out, (B, n), I32), state_out=(buf, buf.shape, I32)),
+        (B, n // chn, chn, freq, freq // 1000 * sub_ms), span="vad.kernel")
     return _state_views(buf, B), out

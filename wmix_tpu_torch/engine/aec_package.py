@@ -13,23 +13,25 @@ partition histories newest first, the near/out frame rings replaced by the
 package itself plus a 48-sample output carry, per-stream scalars as
 [B, 1] columns.  Start-up and the first irregular package run the
 exact-layout engine (`engine/aec_step.py`); `convert_eng_state` moves the
-state into this layout once, at the first steady package.
+state into this layout once, at the first steady package.  This module
+alone decides which of the two layouts a chain's float AEC state is in:
+`kernel_serves`, `prepare_chain_aec`, `is_kernel_layout`,
+`fresh_chain_aec` and `chain_aec_from`.
 
 Fast mode, float32 only.
 """
 from __future__ import annotations
 
-import collections
-import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from wmix_tpu_torch import kernels
 from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.aec import (
+    AecDev,
     MIN_FAREND_PSD,
     MIN_OVERDRIVE,
     NUM_PARTITIONS,
@@ -541,10 +543,6 @@ def package_body(state, near320, xf5r, xf5i, xfw5r, xfw5i, rand, flags,
 
 # ---------------------------------------------------------- the kernel
 
-_INPUTS = ("flags", "rand", "near320", "xf5r", "xf5i", "xfw5r", "xfw5i",
-           "consts")
-
-
 @functools.lru_cache(maxsize=8)
 def _kernel_consts(device: str) -> torch.Tensor:
     """The kernel's constant table: cos and sin of 2 pi m / 128 (m < 128),
@@ -558,33 +556,6 @@ def _kernel_consts(device: str) -> torch.Tensor:
     return torch.from_numpy(tab.astype(np.float32)).to(device)
 
 
-def _check_kernel_args(ins: dict, state: dict) -> int:
-    near = ins["near320"]
-    B = near.shape[0]
-    dev = near.device
-    want = dict(flags=((BLOCKS_PER_PKG, 3), I32),
-                rand=((BLOCKS_PER_PKG, PART_LEN1), I32),
-                near320=((B, PKG_LEN), F32),
-                consts=((2 * PART_LEN2 + 3 * PART_LEN1,), F32),
-                **{k: ((B, BLOCKS_PER_PKG, PART_LEN1), F32)
-                   for k in ("xf5r", "xf5i", "xfw5r", "xfw5i")},
-                **{k: ((B,) + STATE_SHAPES[k],
-                       I32 if k in SCALAR_I else F32)
-                   for k in STATE_FIELDS})
-    tensors = dict(ins, **{k: state[k] for k in STATE_FIELDS})
-    for name, (shape, dtype) in want.items():
-        t = tensors[name]
-        if t.device != dev:
-            raise ValueError(f"aec_package: {name} on {t.device}, "
-                             f"expected {dev}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"aec_package: {name} is {t.dtype} "
-                             f"{tuple(t.shape)}, expected {dtype} {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"aec_package: {name} is not contiguous")
-    return B
-
-
 def package_step(state, near320, xf5r, xf5i, xfw5r, xfw5i, rand, flags,
                  mult: int = 2, nlp_mode: int = 2):
     """The package step: on CUDA tensors one launch of the hand-written
@@ -595,37 +566,31 @@ def package_step(state, near320, xf5r, xf5i, xfw5r, xfw5i, rand, flags,
                             rand, flags, mult, nlp_mode)
     if near320.device.type != "cuda":
         raise ValueError(f"aec_package: no kernel for {near320.device}")
+    return _kernel_step(state, near320, xf5r, xf5i, xfw5r, xfw5i, rand,
+                        flags, mult, nlp_mode)
+
+
+def _kernel_step(state, near320, xf5r, xf5i, xfw5r, xfw5i, rand, flags,
+                 mult: int, nlp_mode: int):
+    """`package_step` on the card: one launch of `csrc/aec_package.cu`,
+    the state updated in place."""
     if (mult, nlp_mode) != (2, 2):
         raise NotImplementedError("aec_package kernel: mult=2, nlp_mode=2")
-    from wmix_tpu_torch import kernels
-    ins = dict(flags=flags, rand=rand, near320=near320, xf5r=xf5r,
-               xf5i=xf5i, xfw5r=xfw5r, xfw5i=xfw5i,
-               consts=_kernel_consts(str(near320.device)))
-    B = _check_kernel_args(ins, state)
+    B = near320.shape[0]
     out = torch.empty((B, PKG_LEN), dtype=F32, device=near320.device)
-    ptrs = [ins[k].data_ptr() for k in _INPUTS] + \
-        [state[k].data_ptr() for k in STATE_FIELDS] + [out.data_ptr()]
-    lib = kernels.load("aec_package")
-    # the tensors' device and its current stream, whatever device is
-    # current in this thread: the launch makes that device current in the
-    # library's own CUDA runtime and restores the previous one
-    dev = near320.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wmix_aec_package_launch(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), B, mult, nlp_mode,
-        dev.index, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"aec_package kernel launch failed: CUDA error "
-                           f"{rc} ({lib.wmix_cuda_error_string(rc).decode()})")
-    with _count_lock:       # shards launch from threads of their own
-        package_step.launches += 1
-        package_step.launches_by_device[str(dev)] += 1
+    spectra = ((B, BLOCKS_PER_PKG, PART_LEN1), F32)
+    kernels.launch("aec_package", dict(
+        flags=(flags, (BLOCKS_PER_PKG, 3), I32),
+        rand=(rand, (BLOCKS_PER_PKG, PART_LEN1), I32),
+        near320=(near320, (B, PKG_LEN), F32),
+        xf5r=(xf5r, *spectra), xf5i=(xf5i, *spectra),
+        xfw5r=(xfw5r, *spectra), xfw5i=(xfw5i, *spectra),
+        consts=(_kernel_consts(str(near320.device)),
+                (2 * PART_LEN2 + 3 * PART_LEN1,), F32),
+        **{k: (state[k], (B,) + STATE_SHAPES[k],
+               I32 if k in SCALAR_I else F32) for k in STATE_FIELDS},
+        out=(out, (B, PKG_LEN), F32)), (B, mult, nlp_mode))
     return state, out
-
-
-_count_lock = threading.Lock()
-package_step.launches = 0
-package_step.launches_by_device = collections.Counter()   # "cuda:N" -> n
 
 
 # ------------------------------------------------- engine integration
@@ -773,6 +738,60 @@ def init_chain_aec(batch: int, part_cap: int, device=None):
                            z(batch, part_cap, 2 * PART_LEN1),
                            z(batch, part_cap, 2 * PART_LEN1),
                            init_package_state(batch, device))
+
+
+def kernel_serves(freq: int, fast: bool) -> bool:
+    """Whether a float AEC chain at `freq` in this arithmetic mode ever
+    takes the kernel layout: the kernel serves steady 16 kHz plans in fast
+    mode, as the reference's package kernel does."""
+    return fast and freq == 16000
+
+
+def is_kernel_layout(aec) -> bool:
+    """Whether a chain's float AEC state is in the kernel layout (else it
+    is in the exact ring layout)."""
+    return isinstance(aec, PackageAecState)
+
+
+def prepare_chain_aec(aec, sig, dyn, freq: int, fast: bool):
+    """(state, kernel): the chain's float AEC state in the layout that the
+    package of plan (sig, dyn) needs, converted once at the first steady
+    package, and whether that package runs the kernel."""
+    kernel = kernel_serves(freq, fast) and is_steady_16k(sig) and \
+        is_steady_dyn(dyn)
+    if kernel and not is_kernel_layout(aec):
+        return convert_chain_aec(aec, dyn), True
+    if not kernel and is_kernel_layout(aec):
+        raise RuntimeError(
+            "kernel-layout AEC state cannot serve a non-steady plan; "
+            "16 kHz plans stay steady after startup so this indicates "
+            "planner state corruption (or a kernel-layout snapshot "
+            "restored into an exact-mode chain)")
+    return aec, kernel
+
+
+def fresh_chain_aec(kernel: bool, batch: int, part_cap: int, device=None):
+    """Fresh float AEC state of `batch` slots, in the kernel layout or in
+    the exact ring layout."""
+    if kernel:
+        return init_chain_aec(batch, part_cap, device)
+    return aec_step.init_eng_state(batch, part_cap, device)
+
+
+def chain_aec_from(tree, leaf):
+    """A `wmix_tpu` chain's float AEC state, a tree of numpy leaves in
+    either layout (the kernel layout is its PallasAecState), as the
+    port's: each leaf through `leaf`."""
+    if hasattr(tree, "dev"):
+        return aec_step.AecEngState(
+            dev=AecDev(**{f: leaf(getattr(tree.dev, f))
+                          for f in AecDev._fields}),
+            **{f: leaf(getattr(tree, f))
+               for f in aec_step.AecEngState._fields if f != "dev"})
+    return PackageAecState(
+        far_pre=leaf(tree.far_pre), far_parts=leaf(tree.far_parts),
+        farw_parts=leaf(tree.farw_parts),
+        p={k: leaf(tree.p[k]) for k in STATE_FIELDS})
 
 
 def build_chain_aec_body(signature, sub_len: int, mult: int, nlp_mode: int):

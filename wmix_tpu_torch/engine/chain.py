@@ -46,16 +46,12 @@ range, each on a device of its own or all on one; the shards take turns
 on the host (`utils/turns.py`), so that no shard's device read holds up
 the others' work.
 
-`WMIX_TRACE_STEPS=1` when the chain is built gives it a `StepTimer`
-(`step_timer`) that times every `run_chunk` against its K packages of
-audio; on the card the step ends with a synchronize, so that it times the
-work and not its launches.  With the spans of `utils/trace.py` on, a
-package is the span `chain.step` (the chain's tick as its request) over
-`chain.plan` and one span a stage: `chain.ns` or `chain.nsx`, `chain.aec`
-or `chain.aecm` (the body built, run, its non-finite outputs counted and
-cast), `chain.agc` and `chain.vad`; what `chain.step` holds outside them
-is the chain's own work (the copies in, the FIFO write, the casts, the
-zoom).
+With the spans of `utils/trace.py` on, a package is the span `chain.step`
+(the chain's tick as its request) over `chain.plan` and one span a stage:
+`chain.ns` or `chain.nsx`, `chain.aec` or `chain.aecm` (the body built,
+run, its non-finite outputs counted and cast), `chain.agc` and
+`chain.vad`; what `chain.step` holds outside them is the chain's own work
+(the copies in, the FIFO write, the casts, the zoom).
 """
 from __future__ import annotations
 
@@ -69,7 +65,6 @@ from wmix_tpu_torch.dsp import agc as agc_mod
 from wmix_tpu_torch.dsp import ns as ns_mod
 from wmix_tpu_torch.dsp import nsx as nsx_mod
 from wmix_tpu_torch.dsp import vad as vad_mod
-from wmix_tpu_torch.dsp.aec import AecDev
 from wmix_tpu_torch.dsp.floatops import fast_mode
 from wmix_tpu_torch.engine import aec_package, aec_step, aecm_step
 from wmix_tpu_torch.engine.aec_plan import AecPlanner
@@ -85,7 +80,8 @@ AEC_INTERVALMS = 400      # platform/alsa/plat.h:19; FIFO of 400/20+2 = 22
 
 class ChainState(NamedTuple):
     ns: object                # NsState, or NsxState with ns_backend="nsx"
-    aec: object               # AecEngState, or PackageAecState once steady;
+    aec: object               # the float AEC in the ring layout, or in the
+                              # kernel layout once steady (aec_package);
                               # AecmEngState with aec_backend="aecm"
     agc: agc_mod.AgcState
     vad: vad_mod.VadState
@@ -157,8 +153,6 @@ class RecordChain:
         # count, read only by whoever wants it
         self.aec_nonfinite = torch.zeros((), dtype=torch.int64,
                                          device=self.device)
-        self.step_timer = trace.StepTimer() if trace.steps_enabled() \
-            else None
         # zoom to the 1x8000 shared-memory ring: a fixed gather per package
         # (wmix.c:846-848).  For chn=2 it takes the LEFT channel
         # (wmix_pcm_zoom mode 0x21, src/wmix.c:205-212): frame index ->
@@ -177,7 +171,7 @@ class RecordChain:
             return self.pkg_len
         return int(self.zoom_idx.shape[0])
 
-    def _init_state(self, batch: int) -> ChainState:
+    def _init_state(self, batch: int, kernel_aec: bool = False) -> ChainState:
         dev = self.device
         ns_init = nsx_mod.init_state if self.ns_backend == "nsx" else \
             ns_mod.init_state
@@ -185,7 +179,8 @@ class RecordChain:
             ns=ns_init(batch, self.freq, dev),
             aec=(aecm_step.init_eng_state(batch, self.freq, dev)
                  if self.aec_backend == "aecm" else
-                 aec_step.init_eng_state(batch, self.part_cap, dev)),
+                 aec_package.fresh_chain_aec(kernel_aec, batch,
+                                             self.part_cap, dev)),
             agc=agc_mod.init_state(batch, dev),
             vad=vad_mod.init_state(batch, dev),
             play_fifo=torch.zeros(
@@ -199,27 +194,12 @@ class RecordChain:
         state."""
         idx = torch.as_tensor(np.atleast_1d(np.asarray(slots, np.int64)),
                               device=self.device)
-        fresh = self._init_state(len(idx))
-        if isinstance(self.state.aec, aec_package.PackageAecState):
-            fresh = fresh._replace(aec=aec_package.init_chain_aec(
-                len(idx), self.part_cap, self.device))
+        fresh = self._init_state(
+            len(idx), aec_package.is_kernel_layout(self.state.aec))
 
         def put(cur, new):
             cur[idx] = new      # in place, slot rows only
         _tree_zip(put, self.state, fresh)
-
-    def _ensure_aec_layout(self, want_kernel: bool, dyn) -> None:
-        aec = self.state.aec
-        if want_kernel and isinstance(aec, aec_step.AecEngState):
-            self.state = self.state._replace(
-                aec=aec_package.convert_chain_aec(aec, dyn))
-        elif not want_kernel and \
-                isinstance(aec, aec_package.PackageAecState):
-            raise RuntimeError(
-                "kernel-layout AEC state cannot serve a non-steady plan; "
-                "16 kHz plans stay steady after startup so this indicates "
-                "planner state corruption (or a kernel-layout snapshot "
-                "restored into an exact-mode chain)")
 
     def _plan_tick(self):
         """Host bookkeeping for one tick: FIFO slots + AEC plan."""
@@ -279,27 +259,16 @@ class RecordChain:
         AEC state put in the layout that package needs."""
         if not (self.flags[1] and self.aec_backend == "aec"):
             return False
-        # the package kernel serves steady 16 kHz fast-mode plans, as the
-        # reference's does
-        steady = self.fast and self.freq == 16000 and \
-            aec_package.is_steady_16k(sig) and aec_package.is_steady_dyn(dyn)
-        self._ensure_aec_layout(steady, dyn)
-        return steady
+        aec, kernel = aec_package.prepare_chain_aec(
+            self.state.aec, sig, dyn, self.freq, self.fast)
+        if aec is not self.state.aec:
+            self.state = self.state._replace(aec=aec)
+        return kernel
 
     def run_chunk(self, mic_chunk, play_chunk):
         """K packages: mic_chunk / play_chunk [K, B, pkg_len * chn] int16.
         Returns (origin [K, B, pkg_len * chn] int16, pkg8k [K, B, n8k]
         int16, vad_flags [K, B] int32)."""
-        if self.step_timer is None:
-            return self._run_chunk(mic_chunk, play_chunk)
-        self.step_timer.budget_ms = mic_chunk.shape[0] * self.interval_ms
-        with self.step_timer.step():
-            outs = self._run_chunk(mic_chunk, play_chunk)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        return outs
-
-    def _run_chunk(self, mic_chunk, play_chunk):
         mic_chunk = self._on_device(mic_chunk)
         play_chunk = self._on_device(play_chunk)
         outs = [self.step(mic_chunk[k], play_chunk[k])
@@ -517,18 +486,9 @@ def state_from_numpy(tree, device=None) -> ChainState:
             core={k: _leaf(v, device) for k, v in aec.core.items()},
             **{f: _leaf(getattr(aec, f), device)
                for f in aecm_step.AecmEngState._fields if f != "core"})
-    elif hasattr(aec, "dev"):
-        port_aec = aec_step.AecEngState(
-            dev=_tuple_from(AecDev, aec.dev, device),
-            **{f: _leaf(getattr(aec, f), device)
-               for f in aec_step.AecEngState._fields if f != "dev"})
     else:
-        port_aec = aec_package.PackageAecState(
-            far_pre=_leaf(aec.far_pre, device),
-            far_parts=_leaf(aec.far_parts, device),
-            farw_parts=_leaf(aec.farw_parts, device),
-            p={k: _leaf(aec.p[k], device)
-               for k in aec_package.STATE_FIELDS})
+        port_aec = aec_package.chain_aec_from(aec,
+                                              lambda x: _leaf(x, device))
     return ChainState(
         ns=_tuple_from(nsx_mod.NsxState if hasattr(tree.ns, "min_norm")
                        else ns_mod.NsState, tree.ns, device),

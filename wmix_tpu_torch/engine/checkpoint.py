@@ -17,8 +17,8 @@ validates the header against the target chain instead of trusting the
 file.  Leaves are in the order `jax.tree_util.tree_leaves` gives them
 (NamedTuple fields in order, dict keys sorted), so a snapshot that
 `wmix_tpu.engine.checkpoint.snapshot` made of a 16 kHz fast-mode chain
-restores into the port: "pallas" in a header names the kernel layout, the
-port's `PackageAecState`, and "aecm" the AECM backend's `AecmEngState`.
+restores into the port: "pallas" in a header names the kernel layout
+(`engine/aec_package.py`), and "aecm" the AECM backend's `AecmEngState`.
 The port's uint32 leaves (NSX's, held in int64) are written as uint32, as
 the reference writes them, and read back into int64.
 
@@ -47,7 +47,7 @@ import json
 import numpy as np
 import torch
 
-from wmix_tpu_torch.engine import aec_package, aec_step, aecm_step
+from wmix_tpu_torch.engine import aec_package, aecm_step
 from wmix_tpu_torch.engine.aec_plan import _AbsRing
 
 def _planner_state(p) -> dict:
@@ -88,7 +88,7 @@ def _restore_planner(p, snap: dict) -> None:
 def _aec_layout(chain) -> str:
     """"pallas" for the kernel layout (the name `wmix_tpu` writes), "aecm"
     for the AECM backend, "jax" for the exact ring layout."""
-    if isinstance(chain.state.aec, aec_package.PackageAecState):
+    if aec_package.is_kernel_layout(chain.state.aec):
         return "pallas"
     if isinstance(chain.state.aec, aecm_step.AecmEngState):
         return "aecm"
@@ -192,18 +192,15 @@ def restore(chain, data: bytes) -> None:
                          "target RecordChain with aec_backend='aec'")
     if want not in ("jax", "pallas", "aecm"):
         raise ValueError(f"unknown aec_layout {want!r} in snapshot")
-    if want == "pallas" and not chain.fast:
+    if want == "pallas" and not aec_package.kernel_serves(chain.freq,
+                                                          chain.fast):
         raise ValueError("snapshot holds the kernel-layout AEC state of a "
                          "fast-mode chain; an exact-mode chain keeps the "
                          "ring layout and cannot take it")
     state = chain.state
     if want != have:
-        aec = (aec_package.init_chain_aec(chain.batch, chain.part_cap,
-                                          chain.device)
-               if want == "pallas"
-               else aec_step.init_eng_state(chain.batch, chain.part_cap,
-                                            chain.device))
-        state = state._replace(aec=aec)
+        state = state._replace(aec=aec_package.fresh_chain_aec(
+            want == "pallas", chain.batch, chain.part_cap, chain.device))
 
     old_leaves = _leaves(state)
     if len(old_leaves) != len(leaves):

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from wmix_tpu_torch.dsp.floatops import mode_env
-from wmix_tpu_torch.engine.aec_package import PackageAecState
+from wmix_tpu_torch.engine import aec_package
 from wmix_tpu_torch.engine.chain import RecordChain, ShardedRecordChain
 
 FREQ = 16000
@@ -96,7 +96,7 @@ def _compare(devices, mics, plays, ticks: int, mode: str, kw,
             _assert_equal([g[:, lo:hi] for g in got], want,
                           f"{mode}, shard on {d} vs a chain of its width")
         held = "dedicated"
-    if kernel_path and not all(isinstance(st.aec, PackageAecState)
+    if kernel_path and not all(aec_package.is_kernel_layout(st.aec)
                                for st in sh.state):
         raise AssertionError("dryrun_multichip: a shard did not take the "
                              "kernel layout")

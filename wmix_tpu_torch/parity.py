@@ -41,7 +41,7 @@ without one) and, per configuration:
   * `aec_only`: the device and the CPU against `wmix_tpu`'s plain-JAX
     fast path, `error_stats` over the first second (`PLAIN_1S_PATH`) and
     the windows whose digests equal its stored ones;
-  * the AEC kernel's launches (`aec_package.package_step.launches`).
+  * the AEC kernel's launches (`kernels.launched("aec_package")`).
 
 A digest is the first 16 hex characters of a SHA-256 over a stream's
 int16 bytes: the first second, then each of `error_stats`'s 10 windows.
@@ -73,9 +73,9 @@ import zlib
 import numpy as np
 import torch
 
+from wmix_tpu_torch import kernels
 from wmix_tpu_torch.device import resolve_device
 from wmix_tpu_torch.dsp.floatops import mode_env
-from wmix_tpu_torch.engine import aec_package
 from wmix_tpu_torch.engine.chain import RecordChain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -340,14 +340,14 @@ def run_config(name: str, stored: dict, batch: int, seconds: int,
     zero = CONFIGS[name][4]
     plays, mics, _ = build_streams(batch, seconds * FREQ, FREQ)
     n_pkgs = seconds * FREQ // (FREQ // 1000 * PKG_MS)
-    n0 = aec_package.package_step.launches
+    n0 = kernels.launched("aec_package")
     t0 = time.perf_counter()
     got, vflags = config_outputs(name, plays, mics, device=dev)
     wall = time.perf_counter() - t0
     full_length = stored["seconds"] == seconds
     entry = {"seconds": seconds, "batch": batch, "packages": n_pkgs,
              "bit_equal_to_wmix_tpu_expected": zero,
-             "kernel_launches": aec_package.package_step.launches - n0,
+             "kernel_launches": kernels.launched("aec_package") - n0,
              "wall_s": round(wall, 3),
              "pkg_ms": round(wall * 1e3 / n_pkgs, 3),
              "windows_compared": full_length}
@@ -467,7 +467,6 @@ def run(configs=None, batch=64, seconds=None, device=None, jobs=1,
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor, as_completed
     if dev.type == "cuda":
-        from wmix_tpu_torch import kernels
         kernels.load("aec_package")     # built once, before the workers
     threads = max(1, (os.cpu_count() or 1) // jobs)
     with ProcessPoolExecutor(

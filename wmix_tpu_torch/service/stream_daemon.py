@@ -44,6 +44,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from wmix_tpu_torch.engine import aec_package
 from wmix_tpu_torch.service.stream_server import SlotClosed, StreamServer
 from wmix_tpu_torch.utils.trace import StepTimer
 
@@ -378,8 +379,8 @@ def main(argv=None) -> None:
     t0 = time.time()
     chain = d.server.chain
     if chain.flags[1] and chain.aec_backend == "aec" and \
-            chain.device.type == "cuda" and chain.fast and \
-            chain.freq == 16000:
+            chain.device.type == "cuda" and \
+            aec_package.kernel_serves(chain.freq, chain.fast):
         from wmix_tpu_torch import kernels
         print("wmix-tpu-torch-stream: building the AEC kernel...",
               flush=True)

@@ -34,9 +34,6 @@ printf-level (wmix debug flag); here it is structured:
   count says what an eager package costs the host.  It also sums the
   bytes those operations read and write (each tensor argument and result
   once), what the same eager run moves through device memory.
-
-Env var:
-  WMIX_TRACE_STEPS=1     `steps_enabled()`: step accounting asked for
 """
 from __future__ import annotations
 
@@ -168,10 +165,6 @@ class OpCounter:
     def __exit__(self, *exc):
         self._mode.__exit__(*exc)
         return False
-
-
-def steps_enabled() -> bool:
-    return os.environ.get("WMIX_TRACE_STEPS", "") not in ("", "0")
 
 
 @contextlib.contextmanager
